@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
-# Build + push the TPU-VM container (reference analog: container-alps/build.sh).
+# Build + push the GPU container (reference analog: container-alps/build.sh).
 set -euo pipefail
-TAG=${1:-gb25-tpu:latest}
+TAG=${1:-gb25-gpu:latest}
 cd "$(dirname "$0")/.."
 docker build -f container/Dockerfile -t "$TAG" .
 echo "built $TAG"

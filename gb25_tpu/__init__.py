@@ -1,8 +1,9 @@
-"""gb25_tpu: a TPU-native global-ocean simulation engine.
+"""gb25_tpu: a global-ocean simulation engine in JAX for NVIDIA GPUs.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the GB-25
 Gordon Bell stack (Oceananigans ``HydrostaticFreeSurfaceModel`` + ClimaOcean
-coupling + Reactant distributed execution), re-designed TPU-first:
+coupling + Reactant distributed execution), designed as the reference is
+for the GPU: one XLA program per step, XLA fusing the stencils:
 
 - the whole time step is one pure, jitted SPMD program over a ``State`` pytree
   (reference: Reactant traces Julia into StableHLO; here JAX *is* the tracer);

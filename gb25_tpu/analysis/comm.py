@@ -1,7 +1,6 @@
 """Collective-communication accounting from compiled HLO.
 
-The only multi-chip perf signal obtainable without pod hardware (VERDICT r1
-missing #5): parse the compiled sharded step's HLO, find the steady-state
+A multi-device perf signal that needs no multi-device hardware: parse the compiled sharded step's HLO, find the steady-state
 while body, and sum the bytes moved by every ``collective-permute`` per step
 per device. The reference scrapes analogous numbers from NCCL traces
 (analysis/analyze_traces.ipynb) and ablates comm optimization at scale
@@ -108,29 +107,12 @@ def collective_permute_stats(hlo: str) -> CommStats:
 
 # --- weak-scaling projection -------------------------------------------------
 
-# effective per-chip ICI bandwidth (bytes/s) available to the halo exchange;
-# v5e: 4 links x ~45 GB/s one-way (How-to-Scale-Your-Model numbers). A 2-D
-# halo exchange uses 4 neighbors concurrently in the best case; we charge the
-# conservative serial-per-round model below instead of the optimistic one.
-ICI_BYTES_PER_SEC = 1.8e11
-ICI_LATENCY_PER_ROUND = 3e-6  # per collective-permute dispatch (s)
-
-
-# the ICI constants above are datasheet-derived and UNCALIBRATED on this
-# one-chip environment; the documented uncertainty is ~2x on the bandwidth
-# term under contention and at least that on the per-permute dispatch
-# latency (scripts/probes/measure_ici.py), so the bar is applied to the
-# WHOLE comm term.  Every projection row carries it INLINE (VERDICT r4
-# item 9).
-ICI_BW_UNCERTAINTY = 2.0
-
-
-def project_weak_scaling(ms_per_step_compute: float, stats: CommStats,
+def project_weak_scaling(ms_per_step_compute: float, stats: CommStats, *,
+                         link_bytes_per_sec: float,
+                         latency_per_round: float,
+                         bw_uncertainty: float,
                          chip_counts=(8, 16, 32, 64, 128, 256),
-                         overlap: bool = True,
-                         ici_bytes_per_sec: float = ICI_BYTES_PER_SEC,
-                         latency_per_round: float = ICI_LATENCY_PER_ROUND,
-                         bw_uncertainty: float = ICI_BW_UNCERTAINTY):
+                         overlap: bool = True):
     """Project weak-scaling efficiency: fixed per-device tile, so bytes/step/
     device is constant with chip count; comm either hides under compute
     (overlap=True; the interior/boundary split + XLA latency hiding) or adds
@@ -139,9 +121,13 @@ def project_weak_scaling(ms_per_step_compute: float, stats: CommStats,
     ~``bw_uncertainty``x uncertainty applied to the WHOLE comm term (best
     case: nominal constants; worst case: every constant degraded by that
     factor — at production tile sizes the per-permute dispatch latency
-    dominates the bytes term, so a bandwidth-only bar would understate)."""
+    dominates the bytes term, so a bandwidth-only bar would understate).
+
+    ``link_bytes_per_sec`` / ``latency_per_round``: the per-device halo
+    link rate and per-collective-permute latency. They have no default:
+    they must come from a measurement on the interconnect being projected."""
     t_comp = ms_per_step_compute / 1e3
-    t_comm = stats.bytes_per_step / ici_bytes_per_sec \
+    t_comm = stats.bytes_per_step / link_bytes_per_sec \
         + stats.permute_count * latency_per_round
     t_comm_hi = t_comm * bw_uncertainty
     out = {}

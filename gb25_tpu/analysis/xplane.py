@@ -3,8 +3,8 @@
 Reference capability: ``analysis/xspace/tensorflow/profiler/xplane_pb.jl`` —
 a ProtoBuf.jl-generated decoder for the `.xplane.pb` traces that the
 reference's notebooks mine for kernel statistics (NCCL send/recv durations
-etc., analysis/analyze_traces.ipynb). ``jax.profiler.trace`` on TPU emits the
-*same* XSpace format, so this hand-rolled wire-format walker (no protobuf
+etc., analysis/analyze_traces.ipynb). ``jax.profiler.trace`` on the GPU emits
+the *same* XSpace format, so this hand-rolled wire-format walker (no protobuf
 dependency is available in the image) provides the equivalent offline
 analysis layer.
 

@@ -10,8 +10,8 @@ Reference capability (simulations/ocean_climate_simulation.jl):
 
 This environment has zero network egress and no NetCDF reader, so the loaders
 consume pre-converted ``.npz`` files with a documented layout, and every
-entry point has a synthetic fallback so the data-free path (the priority per
-BASELINE.json) never needs a download. Dataset files:
+entry point has a synthetic fallback so the data-free path (the reference's
+benchmark configuration, BASELINE.md) never needs a download. Dataset files:
 
   bathymetry.npz:  lat (Ma,), lon (Na,), z (Na, Ma) [m, negative under water]
   climatology.npz: lat, lon, z_levels (L,), T (Na, Ma, L), S (Na, Ma, L)
@@ -175,7 +175,7 @@ def file_prescribed_atmosphere(grid, path, dtype=None, pre_regrid=True):
     JRA55PrescribedAtmosphere with a NetCDF backend).
 
     ``pre_regrid``: regrid the record onto ocean centers at load time (one
-    numpy pass; removes ~28 TPU gathers per coupled step).  Pass False for
+    numpy pass; removes ~28 two-dimensional gathers per coupled step).  Pass False for
     records too large for HBM — the step then gathers per step."""
     dtype = dtype or grid.dtype
     if _is_netcdf(path):

@@ -1,4 +1,4 @@
-"""Dependency-light NetCDF ingestion (VERDICT r1 missing #2).
+"""Dependency-light NetCDF ingestion.
 
 Reference capability: ``regrid_bathymetry`` reads ETOPO1, ``ECCORestoring``
 reads ECCO4 monthly climatology, ``JRA55PrescribedAtmosphere`` reads JRA55 —

@@ -10,7 +10,7 @@ false``); cells are masked by comparing cell-center height to the local
 bottom height. Face velocities on solid faces are zeroed, which makes every
 advective/pressure flux through solid faces vanish; solid-cell tracers are
 frozen (zero flux divergence). Masks are recomputed on the fly from the 2-D
-``bottom_height`` — a fused compare against z, far cheaper on TPU than
+``bottom_height`` — a fused compare against z, cheaper in HBM traffic than
 storing 3-D mask arrays in HBM.
 """
 
@@ -65,19 +65,6 @@ def immersed_masks(grid, comm=None):
     u_mask = (zc > jnp.maximum(be, sm(be, "x"))).astype(grid.dtype)
     v_mask = (zc > jnp.maximum(be, sm(be, "y"))).astype(grid.dtype)
     return c_mask, u_mask, v_mask
-
-
-def face_bottom_planes(grid, comm=None):
-    """(bu, bv): the *face* bottom heights ``max(be, be_neighbor)`` cropped
-    to the interior (Nx, Ny) — the exact comparands ``immersed_masks`` uses,
-    as 2-D planes for in-kernel mask reconstruction (``zc > bu`` at a cell
-    center reproduces ``u_mask`` bit-for-bit)."""
-    be = extend_field_xy(grid, grid.bottom_height, "c", comm)[:, :, None]
-    bu = jnp.maximum(be, sm(be, "x"))
-    bv = jnp.maximum(be, sm(be, "y"))
-    hx, hy = grid.hx, grid.hy
-    return (bu[hx : hx + grid.Nx, hy : hy + grid.Ny, 0],
-            bv[hx : hx + grid.Nx, hy : hy + grid.Ny, 0])
 
 
 def interior_masks(grid, comm=None):

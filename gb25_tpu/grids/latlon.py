@@ -6,11 +6,11 @@ builds an Oceananigans ``LatitudeLongitudeGrid`` with latitude in (-80, 80),
 longitude in (0, 360), exponential z faces (depth 4000 m, surface spacing
 ~30 m) and halo (8,8,8).
 
-TPU-first design notes:
+Design notes:
 
-- Field arrays are laid out ``(x, y, z)`` with z innermost so the vertical
-  dimension (64-128 points) maps onto TPU vector lanes and horizontal
-  stencils are cheap sublane/major-dim shifts.
+- Field arrays are laid out ``(x, y, z)`` with z innermost so a column is
+  contiguous (the vertical solves walk it) and horizontal stencils are
+  strided shifts that XLA fuses.
 - Prognostic fields are stored *interior-only* ``(Nx, Ny, Nz)``; stencil
   operators act on halo-extended arrays produced functionally each stage
   (single device: pad/wrap; distributed: ``lax.ppermute`` under

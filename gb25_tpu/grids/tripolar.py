@@ -431,33 +431,26 @@ def extend_field_tripolar(grid, a, kind: str, hx: int, hy: int):
     return e
 
 
-def north_fold_projection(grid, u, v, eta, tracers, tracers_t3=False,
-                          uv_t3=False):
+def north_fold_projection(grid, u, v, eta, tracers):
     """Enforce the T-pivot self-consistency on the seam row (NEMO lbc_lnk
-    analog): the last center row is its own mirror image.
-
-    ``tracers_t3`` / ``uv_t3``: the tracer / velocity arrays arrive in the
-    kernel's transposed (Z, Y, X) layout (the fused-update fast path keeps
-    them transposed all the way into the implicit solves); y is axis 1
-    either way, only the row's x axis moves."""
+    analog): the last center row is its own mirror image."""
     p = grid.pole_index
     P = grid.Ny - 1
 
     # fold the seam ROW only (one (Nx, Nz) slab), not the full array: the
     # x-fold commutes with the row slice, and folding first costs two
     # full-array passes per field
-    def sym_center(c, xaxis=0):
+    def sym_center(c):
         row = c[:, P]
-        return c.at[:, P].set(0.5 * (row + _fold_x(row, p, face=False, axis=xaxis)))
+        return c.at[:, P].set(0.5 * (row + _fold_x(row, p, face=False)))
 
-    def asym_u(uu, xaxis=0):
+    def asym_u(uu):
         row = uu[:, P]
-        return uu.at[:, P].set(0.5 * (row - _fold_x(row, p, face=True, axis=xaxis)))
+        return uu.at[:, P].set(0.5 * (row - _fold_x(row, p, face=True)))
 
-    u = asym_u(u, xaxis=1 if uv_t3 else 0)
+    u = asym_u(u)
     eta = sym_center(eta)
-    tracers = {k: sym_center(c, xaxis=1 if tracers_t3 else 0)
-               for k, c in tracers.items()}
+    tracers = {k: sym_center(c) for k, c in tracers.items()}
     # v's seam face (j = P) pairs with face P+1 on the mirror — both interior
     # representations stay; no pivot-row constraint applies to v itself.
     return u, v, eta, tracers

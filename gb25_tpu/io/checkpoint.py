@@ -6,7 +6,7 @@ ranges (``fields_rank{R}.dat``) plus iteration/time metadata; an offline
 reassembly path rebuilds global fields (``load_global_field``), with no
 gather at save time.
 
-TPU-native mapping (SURVEY.md section 2b): ``jax.Array.addressable_shards``
+JAX mapping (SURVEY.md section 2b): ``jax.Array.addressable_shards``
 exposes exactly (data, global index) per local shard; we write one
 ``.npz`` per host process and reassemble offline with NumPy.
 """

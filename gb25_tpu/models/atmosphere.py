@@ -70,8 +70,7 @@ class PrescribedAtmosphere:
     ``on_ocean_grid=True``: fields are pre-regridded (Nx, Ny, Nt) arrays on
     ocean centers and ``at_time`` is a pure time interpolation.  Keep this on
     whenever the record fits in HBM: spatial regridding per coupled step
-    costs ~28 two-dimensional TPU gathers (measured 83 ms/step at
-    768x384 — 58% of the whole coupled step), while regridding once at
+    costs ~28 two-dimensional gathers, while regridding once at
     construction moves that to init-time numpy and leaves a 2-pass lerp.
     """
 

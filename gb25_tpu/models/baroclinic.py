@@ -113,8 +113,8 @@ def balanced_jet_state(
 
     This removes the geostrophic-adjustment transient of the unbalanced
     init — the transient's w-CFL clamped the eddy probe to dt <= 60 s at
-    1/4 degree and contaminated the growth-rate fit window (VERDICT r4
-    item 5; docs/EDDY_VALIDATION.json).  ``1/f`` is clamped at |phi| = 10
+    1/4 degree and contaminated the growth-rate fit window (ROADMAP.md,
+    eddy-saturation validation).  ``1/f`` is clamped at |phi| = 10
     deg (the front lives at |phi| ~ 40 deg, where the buoyancy gradient —
     and hence u — is concentrated; near the equator the analytic front is
     flat so the clamped residual is negligible)."""

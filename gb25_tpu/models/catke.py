@@ -157,18 +157,12 @@ def catke_diffusivities(closure, grid, ue, ve, be, ee):
 
 
 def catke_math(closure, ue, ve, be, ee, dzf, z_f, bot):
-    """The CATKE formulation as a layout-agnostic pure function.
-
-    Runs unchanged on halo-extended (X, Y, Z) arrays (array path) AND on
-    transposed (Z, Y, X) VMEM windows inside the Pallas CATKE kernel under
-    ``stencils.axis_order(z=0, y=1, x=2)`` (ops/pallas_catke.py) — the same
-    single-source-of-truth discipline as ``tendency_math`` — which is what
-    guarantees the two backends agree.
+    """The CATKE formulation as a pure function of halo-extended (X, Y, Z)
+    arrays.
 
     ``dzf`` / ``z_f``: vertical profiles broadcastable against the fields
-    ((1, 1, Z) extended, or (W, byh, 1) kernel windows).  ``bot``: bottom
-    depth plane broadcastable the same way ((X, Y, 1) / (1, byh, bxh) /
-    scalar-filled for flat bottoms).
+    ((1, 1, Z) extended).  ``bot``: bottom depth plane broadcastable the
+    same way ((X, Y, 1), or scalar-filled for flat bottoms).
     """
     from gb25_tpu.ops.stencils import dz_f as d_zf, i_f, ix_c, iy_c, iz_c
 

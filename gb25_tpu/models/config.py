@@ -46,10 +46,9 @@ class SplitExplicitFreeSurface:
 
     ``exchange_width``: halo width W of the blocked substep exchange
     (models.free_surface; None = the grid halo).  Each width-W exchange
-    supports W substeps, so W = substeps runs the whole solve in ONE
-    blocked-kernel launch with ONE (2-D, cheap) exchange round — the
-    decomposed-path production setting (the serial path uses the whole-loop
-    VMEM kernel regardless).  Serial and distributed runs must use the SAME
+    supports W substeps, so W = substeps runs the whole solve with ONE
+    (2-D, cheap) exchange round — the decomposed-path production setting.
+    Serial and distributed runs must use the SAME
     value for serial-vs-sharded bitwise agreement, which the config knob
     guarantees; tiles narrower than W+1 shrink it locally (warned).
     """
@@ -104,10 +103,6 @@ class HydrostaticConfig:
     # (the reference's WENOVectorInvariant carries its own equivalent
     # cure); "standard" = plain C-grid form (ops/operators.py).
     ke_scheme: str = "hollingsworth"
-    # tendency backend: "auto" uses the fused Pallas mega-kernel on TPU when
-    # the configuration supports it, else XLA array ops; "jnp" forces the
-    # array-op path; "pallas" forces the kernel (errors if unsupported)
-    kernels: str = "auto"
     # Precision lowering (reference analog: Reactant.MultiFloatOptions,
     # src/arg_parsing.jl:99-107): compute the tendency stage in this dtype
     # (e.g. "bfloat16") while the prognostic state/update stays in the
@@ -121,13 +116,8 @@ class HydrostaticConfig:
     # local-only extension so they carry no data dependence on the halo
     # ppermutes, letting XLA's latency-hiding scheduler overlap them; the
     # four boundary strips are recomputed from the exchange and stitched.
-    # Default False since round 4: on v5e hardware the strip recompute costs
-    # ~30 ms/step at the flagship size (thin sliver windows occupy ~3% of
-    # the 8x128 VPU tile) while the halo exchange it hides is sub-ms on ICI
-    # — measured via the forced-comm harness: overlap 105.3 ms/step,
-    # monolithic 38.7, serial 35.8 (scripts/probes/probe_decomposed_stages
-    # itemization: strips alone 30 ms).  True remains available for wide
-    # tiles / slow-interconnect regimes where exchange latency dominates.
+    # Default False: the four boundary strips are recomputed, and whether
+    # hiding the exchange pays for that has not been measured on GPUs.
     overlap_split: bool = False
 
     @property

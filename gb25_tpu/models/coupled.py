@@ -125,16 +125,16 @@ def compute_interface_fluxes(ccfg: CoupledConfig, grid, atmos, state, comm=None,
 
 
 def coupled_time_step(ccfg: CoupledConfig, grid, atmos, state, dt, comm=None,
-                      g_t3=False, premasked=False):
+                      premasked=False):
     """One coupled step: interface fluxes, ocean hydrostatic step, then the
     freezing limiter (ClimaOcean: above_freezing_ocean_temperature!).
 
-    ``g_t3``/``premasked``: transposed-G carry / hoisted stage-1 mask (see
-    models.hydrostatic.loop and premask_state) — only ``coupled_loop`` sets
-    them."""
-    fluxes, _ = compute_interface_fluxes(ccfg, grid, atmos, state, comm)
+    ``premasked``: hoisted stage-1 mask (see models.hydrostatic.premask_state)
+    — only ``coupled_loop`` sets it."""
+    with jax.named_scope("fluxes"):
+        fluxes, _ = compute_interface_fluxes(ccfg, grid, atmos, state, comm)
     state = time_step(ccfg.ocean, grid, state, dt, comm, surface_fluxes=fluxes,
-                      g_t3=g_t3, premasked=premasked)
+                      premasked=premasked)
     return limit_ocean_temperature(ccfg.sea_ice, state)
 
 
@@ -159,10 +159,7 @@ def coupled_ice_time_step(ccfg, grid, atmos, state, ice, dt, comm=None,
 
 def coupled_ice_loop(ccfg, grid, atmos, state, ice, dt, n, comm=None,
                      restoring=None):
-    """n coupled steps carrying (ocean state, sea-ice state); one HLO while.
-
-    The transposed-G fast carry (``g_t3_loop``) is not wired here: the
-    prognostic-ice configuration is not the benchmark path."""
+    """n coupled steps carrying (ocean state, sea-ice state); one HLO while."""
 
     from gb25_tpu.models.hydrostatic import premask_state
 
@@ -177,17 +174,10 @@ def coupled_ice_loop(ccfg, grid, atmos, state, ice, dt, n, comm=None,
 
 
 def coupled_loop(ccfg, grid, atmos, state, dt, n, comm=None):
-    from gb25_tpu.models.hydrostatic import _g_t3_ok, g_t3_loop, premask_state
+    """n coupled steps as one on-device loop."""
+    from gb25_tpu.models.hydrostatic import premask_state
 
     state = premask_state(grid, state, comm)
-    if _g_t3_ok(ccfg.ocean, grid, state, comm):
-        # transposed-G carry across the coupled loop (the climate fast
-        # path): the stored tendencies stay in the kernel's (Z, Y, X)
-        # layout between iterations — see models.hydrostatic.loop
-        return g_t3_loop(
-            lambda s: coupled_time_step(ccfg, grid, atmos, s, dt, comm,
-                                        g_t3=True, premasked=True),
-            state, n)
 
     def body(_, s):
         return coupled_time_step(ccfg, grid, atmos, s, dt, comm,

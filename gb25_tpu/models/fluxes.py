@@ -10,7 +10,7 @@ relies on for Reactant tracing; here it maps to a ``lax.fori_loop``.
 Implements a COARE-style bulk algorithm: roughness via Charnock + smooth-flow
 viscous term, Businger-Dyer stability functions, gustiness floor; plus
 surface radiation balance (shortwave albedo, graybody longwave emission).
-All element-wise over (Nx, Ny) — one fused VPU kernel on TPU.
+All element-wise over (Nx, Ny): XLA fuses them into a few kernels.
 """
 
 from __future__ import annotations

@@ -15,9 +15,9 @@ velocities are replaced by the time-filtered averages (weights integrate to 1
 with centroid at t + dt), following the standard split-explicit design
 (Shchepetkin & McWilliams 2005) that Oceananigans implements.
 
-TPU notes: the substep loop is a ``lax.scan`` over static weights — one HLO
-while loop whose body is a handful of fused 2-D VPU ops plus a width-1 halo
-exchange, so the whole 30-substep solve stays on device.
+The substeps are unrolled in blocks of the exchange width: each block is a
+handful of fused 2-D stencil ops after one width-W halo exchange, so the
+whole 30-substep solve stays on device inside the step program.
 """
 
 from __future__ import annotations
@@ -53,19 +53,10 @@ def _crop2(grid, a, h=1):
     return a[h : h + grid.Nx, h : h + grid.Ny]
 
 
-def _make_zint(dz):
-    """Depth-integral helpers over an interior ``dz`` slab: ``zint`` for
-    (X, Y, Z) fields and ``zint_t3`` for transposed (Z, Y, X) fields
-    (returning the (X, Y) integral either way)."""
-
-    def zint(a):
-        return jnp.sum(a * dz, axis=2)
-
-    def zint_t3(a):
-        dzt = jnp.transpose(dz, (2, 1, 0))
-        return jnp.transpose(jnp.sum(a * dzt, axis=0), (1, 0))
-
-    return zint, zint_t3
+def _zint(grid, a):
+    """Depth integral of an interior (X, Y, Z) field."""
+    hz, Nz = grid.hz, grid.Nz
+    return jnp.sum(a * grid.dz_c[:, :, hz : hz + Nz], axis=2)
 
 
 def _metrics2(grid, h=1):
@@ -108,15 +99,11 @@ def _metrics2_exchange(grid, comm, W):
 
 
 def barotropic_substep(cfg, grid, state, u_star, v_star, Gu_ab, Gv_ab, dt,
-                       comm=None, uv_t3=False, integrals=None):
+                       comm=None):
     """Run the split-explicit barotropic solve; returns (eta_new, u_new, v_new).
 
     u_star/v_star: baroclinic AB2-updated velocities (no eta gradient force).
     Gu_ab/Gv_ab:   the AB2-combined tendencies used for that update (interior).
-    integrals:     optional (U0, V0, Us, Vs) depth integrals of (u, v, u*, v*)
-                   precomputed inside the z-slab kernel (VMEM scratch
-                   accumulation, ops/pallas_zslab.py ``integrals=True``) —
-                   skips this function's two full-field reduction passes.
 
     Latency optimization (SURVEY.md hard part (b)): instead of two width-1
     halo exchanges per substep (2 x 30 rounds of thin ppermutes per model
@@ -136,28 +123,11 @@ def barotropic_substep(cfg, grid, state, u_star, v_star, Gu_ab, Gv_ab, dt,
     dtype = state.eta.dtype
 
     hz, Nz = grid.hz, grid.Nz
-    dz = grid.dz_c[:, :, hz : hz + Nz]
-    zint, zint_t3 = _make_zint(dz)
-
-    zint_u = zint_t3 if uv_t3 else zint
-    uv_zints = None
-    if integrals is not None:
-        U0, V0, Us, Vs = integrals
-        uv_zints = (Us, Vs)
-        GU = (Us - U0) / dt
-        GV = (Vs - V0) / dt
-    elif Gu_ab is None:
-        # kernel-fused AB2 path: u* = u + dt*G_ab was computed in-kernel, so
-        # zint(G_ab) = (zint(u*) - U0) / dt — no G_ab array exists
-        U0, V0 = zint(state.u), zint(state.v)
-        GU = (zint_u(u_star) - U0) / dt
-        GV = (zint_u(v_star) - V0) / dt
-    else:
-        U0, V0 = zint(state.u), zint(state.v)
-        GU, GV = zint(Gu_ab), zint(Gv_ab)
+    U0, V0 = _zint(grid, state.u), _zint(grid, state.v)
+    GU, GV = _zint(grid, Gu_ab), _zint(grid, Gv_ab)
 
     # exchange width: the grid halo (or the config's exchange_width — up to
-    # `substeps`, making the whole solve ONE blocked-kernel launch + ONE
+    # `substeps`, making the whole solve ONE blocked solve + ONE
     # exchange round), clamped so strips (width W+1 for the depth field)
     # never exceed the local tile extent on tiny/sliver tiles
     # NOTE: W must be identical in the serial and distributed runs for bitwise
@@ -179,8 +149,7 @@ def barotropic_substep(cfg, grid, state, u_star, v_star, Gu_ab, Gv_ab, dt,
     # metrics instead of being re-mirrored each substep, a roundoff-scale
     # drift (~1e-9 abs) re-zeroed at every exchange
     # (test_per_block_agrees_with_every_substep); x-periodic and
-    # shard-interface ghosts evolve bitwise-exactly.  The serial whole-loop
-    # kernel (pallas_barotropic_loop) instead re-imposes BCs every substep.
+    # shard-interface ghosts evolve bitwise-exactly.
     # NOTE: serial and distributed runs must use the same value for bitwise
     # agreement; override via GB25_BAROTROPIC_BLOCK for experiments only.
     import os
@@ -234,50 +203,6 @@ def barotropic_substep(cfg, grid, state, u_star, v_star, Gu_ab, Gv_ab, dt,
     def interior(a):
         return a[W:-W, W:-W]
 
-    from gb25_tpu.ops.pallas_barotropic import (
-        barotropic_kernel_supported,
-        blocked_barotropic_supported,
-        pallas_barotropic_block,
-        pallas_barotropic_loop,
-    )
-
-    if (
-        comm is None
-        and cfg.kernels in ("auto", "zslab")
-        and barotropic_kernel_supported(cfg, grid, dtype)
-    ):
-        # TPU serial fast path: the whole substep loop as one VMEM-resident
-        # Pallas kernel (the blocked array loop below is latency-bound:
-        # hundreds of small 2-D ops). Covers tripolar (in-kernel fold row)
-        # and immersed (solid-face mask planes) — the climate configuration.
-        mu = None if maskU_e is None else interior(maskU_e)
-        mv = None if maskV_e is None else interior(maskV_e)
-        eta_b, U_b, V_b = pallas_barotropic_loop(
-            cfg, grid, state.eta, U0, V0,
-            interior(GU_e), interior(GV_e),
-            interior(Hu_e), interior(Hv_e), dt, mu=mu, mv=mv,
-        )
-        return _finish(grid, state, u_star, v_star, eta_b, U_b, V_b,
-                       interior(Hu_e), interior(Hv_e), uv_t3=uv_t3,
-                       uv_zints=uv_zints)
-
-    n_masks = 0 if maskU_e is None else 2
-    use_blocked_kernel = cfg.kernels in ("auto", "zslab") and (
-        blocked_barotropic_supported(cfg, grid, dtype, W, n_masks)
-    )
-    if use_blocked_kernel:
-        # shard-capable (and tripolar/immersed-capable) fast path: each
-        # exchange block's substeps run as ONE VMEM kernel; halos still
-        # exchange between blocks, so the comm pattern is unchanged.
-        # Constant planes with dtau folded in (see pallas_barotropic_block):
-        dtau_t = jnp.asarray(dtau, dtype)
-        pu = (dtau_t * g) * Hu_e / dxc
-        pv = (dtau_t * g) * Hv_e / dyf
-        fu = dtau_t * GU_e
-        fv = dtau_t * GV_e
-        rz = dtau_t / azc
-        au, av = dyc.astype(dtype), dxf.astype(dtype)
-
     eta, U, V = state.eta, U0, V0
     eta_b = jnp.zeros_like(state.eta)
     U_b = jnp.zeros_like(U0)
@@ -289,64 +214,33 @@ def barotropic_substep(cfg, grid, state, u_star, v_star, Gu_ab, Gv_ab, dt,
         eta_e = _extend2(grid, eta, "c", comm, h=W)
         U_e = _extend2(grid, U, "u", comm, h=W)
         V_e = _extend2(grid, V, "v", comm, h=W)
-        if use_blocked_kernel:
-            eta_e, U_e, V_e, pe, pU, pV = pallas_barotropic_block(
-                w_all[m : m + block], eta_e, U_e, V_e, pu, pv, fu, fv,
-                au, av, rz, mu=maskU_e, mv=maskV_e,
-            )
-            eta_b = eta_b + interior(pe)
-            U_b = U_b + interior(pU)
-            V_b = V_b + interior(pV)
-        else:
-            for j in range(block):
-                wm = jnp.asarray(w_all[m + j], dtype)
-                div = (dx_c(U_e * dyc) + dy_c(V_e * dxf)) / azc
-                eta_e = eta_e - dtau * div
-                detax = dx_f(eta_e) / dxc
-                detay = dy_f(eta_e) / dyf
-                U_e = U_e + dtau * (-g * Hu_e * detax + GU_e)
-                V_e = V_e + dtau * (-g * Hv_e * detay + GV_e)
-                if maskU_e is not None:
-                    # no transport through solid faces: the free surface
-                    # cannot flux mass through coastlines (ADVICE r1 medium)
-                    U_e = U_e * maskU_e
-                    V_e = V_e * maskV_e
-                eta_b = eta_b + wm * interior(eta_e)
-                U_b = U_b + wm * interior(U_e)
-                V_b = V_b + wm * interior(V_e)
+        for j in range(block):
+            wm = jnp.asarray(w_all[m + j], dtype)
+            div = (dx_c(U_e * dyc) + dy_c(V_e * dxf)) / azc
+            eta_e = eta_e - dtau * div
+            detax = dx_f(eta_e) / dxc
+            detay = dy_f(eta_e) / dyf
+            U_e = U_e + dtau * (-g * Hu_e * detax + GU_e)
+            V_e = V_e + dtau * (-g * Hv_e * detay + GV_e)
+            if maskU_e is not None:
+                # no transport through solid faces: the free surface
+                # cannot flux mass through coastlines (ADVICE r1 medium)
+                U_e = U_e * maskU_e
+                V_e = V_e * maskV_e
+            eta_b = eta_b + wm * interior(eta_e)
+            U_b = U_b + wm * interior(U_e)
+            V_b = V_b + wm * interior(V_e)
         eta, U, V = interior(eta_e), interior(U_e), interior(V_e)
         m += block
 
-    return _finish(grid, state, u_star, v_star, eta_b, U_b, V_b,
-                   interior(Hu_e), interior(Hv_e), uv_t3=uv_t3,
-                   uv_zints=uv_zints)
-
-
-def _finish(grid, state, u_star, v_star, eta_b, U_b, V_b, Hu, Hv, uv_t3=False,
-            uv_zints=None):
     # barotropic correction: replace the depth mean of (u*, v*) with the
     # filtered barotropic transport (reference:
     # correct_velocities_and_cache_previous_tendencies!, precompile.jl:41)
-    # uv_t3: u*/v* arrive AND leave transposed (Z, Y, X) — the correction is
-    # a 2-D broadcast, so only the thin plane quantities transpose
-    hz, Nz = grid.hz, grid.Nz
-    dz = grid.dz_c[:, :, hz : hz + Nz]
-    zint, zint_t3 = _make_zint(dz)
-
-    zint_u = zint_t3 if uv_t3 else zint
-    Hu_safe = jnp.maximum(Hu, 1e-30)
-    Hv_safe = jnp.maximum(Hv, 1e-30)
-    Us = uv_zints[0] if uv_zints is not None else zint_u(u_star)
-    Vs = uv_zints[1] if uv_zints is not None else zint_u(v_star)
-    du = (U_b - Us) / Hu_safe
-    dv = (V_b - Vs) / Hv_safe
-    if uv_t3:
-        u_new = u_star + jnp.transpose(du, (1, 0))[None]
-        v_new = v_star + jnp.transpose(dv, (1, 0))[None]
-    else:
-        u_new = u_star + du[:, :, None]
-        v_new = v_star + dv[:, :, None]
-    return eta_b, u_new, v_new
+    Hu_safe = jnp.maximum(interior(Hu_e), 1e-30)
+    Hv_safe = jnp.maximum(interior(Hv_e), 1e-30)
+    du = (U_b - _zint(grid, u_star)) / Hu_safe
+    dv = (V_b - _zint(grid, v_star)) / Hv_safe
+    return eta_b, u_star + du[:, :, None], v_star + dv[:, :, None]
 
 
 def explicit_eta_tendency(grid, ue, ve):

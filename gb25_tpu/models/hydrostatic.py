@@ -15,9 +15,12 @@ quasi-AB2 step, whose stage decomposition the reference documents at
   7. fill halos                      -> next step's extension
   8. correct velocities & cache G    -> barotropic correction, G history
 
-In this TPU-first design the eight stages are one traced function body; XLA
-fuses stages 3-6 into large elementwise kernels and the halo extensions are
-``lax.ppermute`` exchanges when running under ``shard_map``.
+The eight stages are one traced function body that XLA compiles into one
+program per step (the reference's design: Reactant raises the kernels to
+StableHLO and XLA fuses the stencils); the halo extensions are
+``lax.ppermute`` exchanges when running under ``shard_map``. Named scopes
+("closure", "tendency", "barotropic", "vertical_solve") label the stages in
+profiler traces.
 """
 
 from __future__ import annotations
@@ -54,27 +57,17 @@ from gb25_tpu.ops.tridiagonal import implicit_vertical_diffusion
 from gb25_tpu.ops.weno import centered2, upwind1, weno5_upwind
 
 
-def _t3(a):
-    """(X, Y, Z) <-> (Z, Y, X) — the kernel layout transform (its own
-    inverse); single definition for this module (ops.pallas_zslab carries
-    the kernel-side twin)."""
-    return jnp.transpose(a, (2, 1, 0))
-
-
 def mask_v_wall(grid, v, comm=None, total_ny=None):
     """Zero the meridional velocity on the southern wall face (global j = 0).
 
     v[j] sits on the *south* face of row j, so only global row 0 is a wall;
     the north wall is the virtual face Ny (not stored).
 
-    Single device: a thin in-place row write (y is axis 1 in both the
-    (X, Y, Z) and the kernel's transposed (Z, Y, X) layout) — the full-array
-    mask multiply costs a whole HBM pass (~0.9 ms at the flagship size).
-    Distributed: global j = y_offset + j_local = 0 requires j_local = 0
-    (offsets are non-negative), so only LOCAL row 0 can ever be the wall —
-    a thin row-0 multiply by the traced scalar (y_offset != 0) replaces the
-    full-array row-index mask (round-5 decomposed-residual recovery: the
-    3-D mask multiply was a whole HBM pass per call site).
+    Single device: a thin in-place row write (a full-array mask multiply
+    would cost a whole pass over the field). Distributed: global
+    j = y_offset + j_local = 0 requires j_local = 0 (offsets are
+    non-negative), so only LOCAL row 0 can ever be the wall — a thin row-0
+    multiply by the traced scalar (y_offset != 0).
     """
     if comm is None:
         return v.at[:, 0].set(0.0)
@@ -92,10 +85,8 @@ def buoyancy_field(cfg, grid, tracers_e):
 def tendency_math(cfg, grid, f_ff, ue, ve, tr_e):
     """Stages 3+5 physics on halo-extended arrays -> extended tendencies.
 
-    Pure function of extended arrays + (possibly tile-local) grid metrics.
-    This exact code runs both as XLA array ops on whole (local) domains and
-    inside the Pallas kernels on VMEM tiles (ops/pallas_tendency.py),
-    which is what guarantees the two backends agree.
+    Pure function of extended arrays + (possibly tile-local) grid metrics:
+    it runs on whole (local) domains and on the overlap split's windows.
     """
     we = diagnose_w(grid, ue, ve)
     be = buoyancy_field(cfg, grid, tr_e)
@@ -107,7 +98,7 @@ def tendency_math(cfg, grid, f_ff, ue, ve, tr_e):
 
 def momentum_tendency_math(cfg, grid, f_ff, ue, ve, we=None, pe=None, tr_e=None):
     """Momentum tendencies (upwinded vector-invariant + pressure gradient).
-    Auxiliaries are recomputed from tr_e when not supplied (Pallas split)."""
+    Auxiliaries are recomputed from tr_e when not supplied."""
     eps = cfg.weno_eps
     if we is None:
         we = diagnose_w(grid, ue, ve)
@@ -131,8 +122,7 @@ def momentum_tendency_math(cfg, grid, f_ff, ue, ve, we=None, pe=None, tr_e=None)
     Gu = q_u * vbar_fc
     Gv = -q_v * ubar_cf
 
-    # reciprocal metrics: constant-folded in the array path, hoisted out of
-    # the per-level EUP divide in the Pallas kernel (see horizontal_divergence)
+    # reciprocal metrics (see horizontal_divergence)
     r_dxc = 1.0 / grid.dxc
     r_dyf = 1.0 / grid.dyf
     if cfg.momentum_advection in ("weno_vector_invariant", "vector_invariant"):
@@ -253,12 +243,38 @@ def split_tendency_math(cfg, grid, f_ff, ue, ve, tr_e, ue_loc, ve_loc, tr_loc):
     return Gu, Gv, Gtr
 
 
-def compute_tendencies(cfg, grid, state, comm=None, surface_fluxes=None, restoring=None,
-                       ab2=None, g_t3=False):
-    """Stages 1-5: returns interior tendency arrays (Gu, Gv, Geta, {Gc})
-    plus ``updated`` — the kernel-fused AB2 state update (u*, v*, tracers)
-    when ``ab2`` was passed AND the z-slab kernel carried the tendency
-    stage, else None (the caller then applies the update itself).
+def _closure_diffusivities(cfg, grid, ue, ve, tr_e):
+    """Stage 3 closure: interior diffusivities for the implicit solves and
+    the explicit TKE (and dissipation) sources, or (None, {}) without a
+    turbulence closure."""
+    from gb25_tpu.models.catke import CATKEVerticalDiffusivity, catke_diffusivities
+    from gb25_tpu.models.keps import TKEDissipationVerticalDiffusivity, keps_diffusivities
+
+    if isinstance(cfg.closure, CATKEVerticalDiffusivity):
+        be = buoyancy_field(cfg, grid, tr_e)
+        ku, kc, ke, G_e, lam_e = catke_diffusivities(
+            cfg.closure, grid, ue, ve, be, tr_e["e"])
+        diffusivities = {
+            "kappa_u": grid.interior(ku), "kappa_c": grid.interior(kc),
+            "kappa_e": grid.interior(ke), "lam_e": grid.interior(lam_e),
+        }
+        return diffusivities, {"e": grid.interior(G_e)}
+    if isinstance(cfg.closure, TKEDissipationVerticalDiffusivity):
+        be = buoyancy_field(cfg, grid, tr_e)
+        ku, kc, ke, keps, G_e, G_eps = keps_diffusivities(
+            cfg.closure, grid, ue, ve, be, tr_e["e"], tr_e["eps"])
+        diffusivities = {
+            "kappa_u": grid.interior(ku), "kappa_c": grid.interior(kc),
+            "kappa_e": grid.interior(ke), "kappa_eps": grid.interior(keps),
+        }
+        return diffusivities, {"e": grid.interior(G_e),
+                               "eps": grid.interior(G_eps)}
+    return None, {}
+
+
+def compute_tendencies(cfg, grid, state, comm=None, surface_fluxes=None, restoring=None):
+    """Stages 1-5: returns interior tendency arrays (Gu, Gv, Geta, {Gc}) and
+    the closure diffusivities (None without a turbulence closure).
 
     ``surface_fluxes``: optional dict of 2-D (Nx, Ny) kinematic surface fluxes
     {"u", "v", "T", "S", ...} (units: field-units * m/s, positive into the
@@ -283,128 +299,15 @@ def compute_tendencies(cfg, grid, state, comm=None, surface_fluxes=None, restori
         _, u_mask_e, v_mask_e = immersed_masks(grid, comm)
         ue = ue * u_mask_e
         ve = ve * v_mask_e
-    else:
-        u_mask_e = v_mask_e = None
-
-    from gb25_tpu.models.catke import CATKEVerticalDiffusivity, catke_diffusivities
-    from gb25_tpu.models.keps import TKEDissipationVerticalDiffusivity, keps_diffusivities
 
     dtype = state.u.dtype
     f_ff = coriolis_ff(grid, cfg.coriolis).astype(dtype)
 
-    diffusivities = None
-    G_e_source = None
-    G_eps_source = None
-    G_e_source_t3 = None  # (Z,Y,X) copies for the transposed-G carry (g_t3)
-    G_eps_source_t3 = None
-    t3ops = None  # transposed kernel operands, shared CATKE-kernel <-> z-slab
-    if isinstance(cfg.closure, CATKEVerticalDiffusivity):
-        from gb25_tpu.ops.pallas_catke import (
-            catke_diffusivities_kernel,
-            catke_kernel_supported,
-        )
-        from gb25_tpu.ops.pallas_zslab import build_t3_operands, zslab_supported
+    with jax.named_scope("closure"):
+        diffusivities, closure_sources = _closure_diffusivities(
+            cfg, grid, ue, ve, tr_e)
 
-        use_ck = (
-            cfg.compute_dtype is None
-            and cfg.kernels in ("auto", "zslab")
-            and catke_kernel_supported(cfg, grid, comm)
-        )
-        # fused transposed extends are valid whenever the kernel consumes
-        # the FULL extension semantics: serial, or a decomposed step
-        # without the overlap split (the extension is then the exchanged
-        # one, built in the same fused ring-strip form — fold grids
-        # included since round 5: extend_field_t3's distributed fold
-        # branch, bitwise-tested on a 2x2 mesh).  The overlap path needs
-        # the exchanged extension separately for its strips, so it keeps
-        # the two-stage form.
-        overlap_pred = (
-            cfg.overlap_split
-            and comm is not None
-            and grid.Nx > 2 * grid.hx
-            and grid.Ny > 2 * grid.hy
-        )
-        fused_ext_ok = comm is None or not overlap_pred
-        if use_ck and fused_ext_ok and zslab_supported(cfg, grid, ue, comm):
-            # climate fast path: build the transposed extended operands ONCE
-            # (fused extends) and share them between the CATKE diffusivity
-            # kernel here and the z-slab tendency kernel below — each
-            # prognostic field is extended exactly once per step.  Kappas and
-            # lam_e stay (Z, Y, X): the Thomas kernel consumes them
-            # transposed anyway (skips an un/re-transpose pair per array).
-            t3ops = build_t3_operands(
-                cfg, grid, state.u, state.v, state.tracers,
-                u_mask_e, v_mask_e, comm=comm,
-            )
-            ue_t, ve_t, tr_t, be_t, _ = t3ops
-            ku_i, kc_i, ke_i, Ge_t, lam_i = catke_diffusivities_kernel(
-                cfg.closure, grid, ue_t, ve_t, be_t, tr_t["e"],
-                t3_outputs=True,
-            )
-            Ge_i = _t3(Ge_t)  # G_e feeds (X,Y,Z) sums
-            G_e_source_t3 = Ge_t  # transposed-G carry increments (g_t3)
-            kappas_t3 = True
-        elif use_ck:
-            # exchanged fields (sharded) or array-tendency runs: transpose
-            # the already-extended fields for the kernel
-            be = buoyancy_field(cfg, grid, tr_e)
-            ku_i, kc_i, ke_i, Ge_t, lam_i = catke_diffusivities_kernel(
-                cfg.closure, grid, _t3(ue), _t3(ve), _t3(be), _t3(tr_e["e"]),
-                t3_outputs=True,
-            )
-            Ge_i = _t3(Ge_t)
-            G_e_source_t3 = Ge_t
-            kappas_t3 = True
-        else:
-            be = buoyancy_field(cfg, grid, tr_e)
-            kap_u_e, kap_c_e, kap_e_e, G_e_ext, lam_e_ext = catke_diffusivities(
-                cfg.closure, grid, ue, ve, be, tr_e["e"]
-            )
-            ku_i, kc_i, ke_i = (grid.interior(kap_u_e), grid.interior(kap_c_e),
-                                grid.interior(kap_e_e))
-            Ge_i, lam_i = grid.interior(G_e_ext), grid.interior(lam_e_ext)
-            kappas_t3 = False
-        diffusivities = {
-            "kappa_u": ku_i, "kappa_c": kc_i, "kappa_e": ke_i, "lam_e": lam_i,
-            "t3": kappas_t3,
-        }
-        G_e_source = Ge_i
-    elif isinstance(cfg.closure, TKEDissipationVerticalDiffusivity):
-        from gb25_tpu.ops.pallas_catke import (
-            catke_kernel_supported,
-            keps_diffusivities_kernel,
-        )
-        be = buoyancy_field(cfg, grid, tr_e)
-        if (cfg.compute_dtype is None and cfg.kernels in ("auto", "zslab")
-                and catke_kernel_supported(cfg, grid, comm)):
-            ku_i, kc_i, ke_i, keps_i, Ge_t, Geps_t = (
-                keps_diffusivities_kernel(
-                    cfg.closure, grid, _t3(ue), _t3(ve), _t3(be),
-                    _t3(tr_e["e"]), _t3(tr_e["eps"]), t3_outputs=True,
-                )
-            )
-            G_e_source = _t3(Ge_t)
-            G_eps_source = _t3(Geps_t)
-            G_e_source_t3, G_eps_source_t3 = Ge_t, Geps_t
-            kappas_t3 = True
-        else:
-            ku, kc, ke, keps, G_e_ext, G_eps_ext = keps_diffusivities(
-                cfg.closure, grid, ue, ve, be, tr_e["e"], tr_e["eps"]
-            )
-            ku_i, kc_i, ke_i, keps_i = (grid.interior(ku), grid.interior(kc),
-                                        grid.interior(ke), grid.interior(keps))
-            G_e_source = grid.interior(G_e_ext)
-            G_eps_source = grid.interior(G_eps_ext)
-            kappas_t3 = False
-        diffusivities = {
-            "kappa_u": ku_i, "kappa_c": kc_i,
-            "kappa_e": ke_i, "kappa_eps": keps_i, "t3": kappas_t3,
-        }
-
-    # -- stages 3+5: auxiliaries + tendencies, either as one fused Pallas
-    # mega-kernel (TPU fast path) or as XLA-fused array ops --
-    from gb25_tpu.ops.pallas_tendency import pallas_supported, pallas_tendencies
-
+    # -- stages 3+5: auxiliaries + tendencies as XLA-fused array ops --
     ue_c, ve_c, tr_c, f_c, grid_c = ue, ve, tr_e, f_ff, grid
     multifloat = cfg.compute_dtype in ("bf16x2", "f32x2")
     if multifloat:
@@ -420,20 +323,6 @@ def compute_tendencies(cfg, grid, state, comm=None, surface_fluxes=None, restori
             lambda x: wr(x) if jnp.issubdtype(x.dtype, jnp.floating) else x,
             grid,
         )
-    elif cfg.compute_dtype == "bf16s":
-        # bf16-storage / f32-compute (TPU kernel path): tendency INPUTS are
-        # rounded to bf16 — the z-slab kernel streams them as bf16 windows,
-        # halving its dominant HBM input traffic — while all arithmetic
-        # (and metrics/Coriolis) stays f32.  The v5e VPU has no bf16 EUP
-        # ops, so whole-bf16 compute can never enter the kernel; this is
-        # the TPU-idiomatic single-limb precision lowering
-        # (reference: MultiFloatOptions, arg_parsing.jl:99-107).
-        def _rt(x):
-            return x.astype(jnp.bfloat16).astype(jnp.float32)
-
-        ue_c = _rt(ue)
-        ve_c = _rt(ve)
-        tr_c = {k: _rt(v) for k, v in tr_e.items()}
     elif cfg.compute_dtype is not None:
         # precision-lowered tendency computation (MultiFloat analog)
         cdt = jnp.dtype(cfg.compute_dtype)
@@ -449,230 +338,41 @@ def compute_tendencies(cfg, grid, state, comm=None, surface_fluxes=None, restori
     use_split = (
         cfg.overlap_split
         and comm is not None
-        and cfg.kernels in ("jnp", "auto")
         and grid.Nx > 2 * grid.hx
         and grid.Ny > 2 * grid.hy
     )
-    from gb25_tpu.ops.pallas_zslab import zslab_supported, zslab_tendencies
-
-    use_zslab = not multifloat and (
-        cfg.kernels == "zslab"
-        or (cfg.kernels == "auto" and zslab_supported(cfg, grid, ue_c, comm))
-    )
-    if cfg.compute_dtype == "bf16s" and not use_zslab:
-        raise ValueError(
-            "compute_dtype='bf16s' (bf16-storage/f32-compute) is a z-slab "
-            "kernel mode: run on TPU with kernels auto/zslab (or "
-            "GB25_ZSLAB_INTERPRET=1 for CPU testing); for an array-path "
-            "lowering use compute_dtype='bfloat16'"
-        )
-    storage = jnp.bfloat16 if cfg.compute_dtype == "bf16s" else None
-    # transposed updated-field handoff: with the transposed-G carry active
-    # and a closure whose implicit solves consume transposed fields anyway,
-    # the kernel's updated fields skip the un-transpose + re-transpose pair
-    # (u/v additionally pass through a transposed-aware barotropic stage)
-    upd_t3 = g_t3 and diffusivities is not None
-    # Comm/compute overlap on the kernel path (VERDICT r2 missing #1): under
-    # shard_map, feed the big z-slab kernel the LOCAL-ONLY extension — its
-    # HLO has no data dependence on any ppermute, so XLA's latency-hiding
-    # scheduler can run the kernel while the halo exchange is in flight.
-    # The four boundary strips (width = halo, the only region whose
-    # tendencies need exchanged data) are recomputed from the exchanged
-    # extension with the array path and stitched over the kernel output —
-    # the same interior/boundary split split_tendency_math proves out for
-    # the array path (NaN-poisoning independence, tests/test_overlap.py).
-    overlap_kernel = (
-        use_zslab
-        and cfg.overlap_split
-        and comm is not None
-        and grid.Nx > 2 * grid.hx
-        and grid.Ny > 2 * grid.hy
-    )
-    updated = None
-    uv_ints = None
-    # in-kernel wall masking + barotropic depth integrals (serial fast path):
-    # the kernel zeroes the southern-wall row of Gv/v* itself (local row 0 is
-    # global row 0 only without a comm) and accumulates zint(u), zint(v),
-    # zint(u*), zint(v*) in VMEM scratch, replacing two full-field XLA
-    # reduction passes in barotropic_substep.  On immersed grids the kernel
-    # masks the *accumulation* itself (face fluid masks rebuilt in-kernel
-    # from streamed 2-D face-bottom planes), so the integrals agree with
-    # zint of the re-masked updated fields.
-    wall_v_kernel = comm is None
-    # in-kernel barotropic depth integrals: valid under comm too (each
-    # shard integrates its own columns); only the v* integral needs a
-    # post-kernel global-wall-row zero, because the kernel's wall_v masking
-    # is serial-only (local row 0 is global row 0 only without a comm).
-    # NOT valid under the overlap split: the kernel's updated fields are
-    # garbage on the boundary strips (recomputed+stitched later), so their
-    # in-kernel integrals would be garbage too.
-    use_ints = ab2 is not None and not overlap_kernel
-    if use_zslab:
-        # Fused transposed extends (one HBM materialization per kernel input
-        # instead of extend + transpose): valid whenever the kernel consumes
-        # the LOCAL-extension semantics — single device, or the overlap
-        # path's local-only extension — on non-folded grids at native dtype.
-        # (north-fold grids included: extend_field_t3 computes the fold's
-        # thin ghost slabs with the same code as extend_field and writes
-        # them transposed — bitwise-equal, tested)
-        # (fold grids valid under comm too since round 5: extend_field_t3's
-        # distributed fold branch builds the exchanged extension fused)
-        raw_ok = cfg.compute_dtype in (None, "bf16s")  # bf16s rounds at storage
-        # extension semantics for the fused raw build: local-only under the
-        # overlap split (the kernel must not depend on any ppermute), else
-        # the real (exchanged) extension
-        raw_comm = None if (comm is None or overlap_kernel) else comm
-        raw = None
-        if t3ops is not None:
-            # operands already built for the CATKE diffusivity kernel
-            ue_k, ve_k, tr_k = ue_c, ve_c, tr_c  # unused by the kernel (DCE)
-        elif raw_ok:
+    with jax.named_scope("tendency"):
+        if use_split:
+            # comm/compute overlap: core tendencies from a local-only
+            # extension (no ppermute in their dependency cone), strips from
+            # the exchange
+            ue_l = extend_field(grid, state.u, "u", None)
+            ve_l = extend_field(grid, state.v, "v", None)
+            tr_l = {k: extend_field(grid, c, "c", None)
+                    for k, c in state.tracers.items()}
             if grid.immersed:
-                from gb25_tpu.grids.immersed import immersed_masks as _imasks
+                from gb25_tpu.grids.immersed import immersed_masks
 
-                _, um_l, vm_l = _imasks(grid, raw_comm)
-            else:
-                um_l = vm_l = None
-            raw = (state.u, state.v, state.tracers, um_l, vm_l)
-            ue_k, ve_k, tr_k = ue_c, ve_c, tr_c  # unused by the kernel (DCE)
-        elif overlap_kernel:
-            ue_k = extend_field(grid, state.u, "u", None)
-            ve_k = extend_field(grid, state.v, "v", None)
-            tr_k = {k: extend_field(grid, c, "c", None) for k, c in state.tracers.items()}
-            if grid.immersed:
-                from gb25_tpu.grids.immersed import immersed_masks as _imasks
-
-                _, um_l, vm_l = _imasks(grid, None)
-                ue_k = ue_k * um_l
-                ve_k = ve_k * vm_l
-            if cfg.compute_dtype is not None and cfg.compute_dtype != "bf16s":
-                # (bf16s needs no cast here: the kernel itself rounds at
-                # bf16 storage, which is idempotent with the rt() rounding)
+                _, um_l, vm_l = immersed_masks(grid, None)
+                ue_l = ue_l * um_l
+                ve_l = ve_l * vm_l
+            if multifloat:
+                ue_l = wrap_compute(ue_l, cfg.compute_dtype)
+                ve_l = wrap_compute(ve_l, cfg.compute_dtype)
+                tr_l = {k: wrap_compute(v, cfg.compute_dtype) for k, v in tr_l.items()}
+            elif cfg.compute_dtype is not None:
                 cdt = jnp.dtype(cfg.compute_dtype)
-                ue_k = ue_k.astype(cdt)
-                ve_k = ve_k.astype(cdt)
-                tr_k = {k: v.astype(cdt) for k, v in tr_k.items()}
+                ue_l = ue_l.astype(cdt)
+                ve_l = ve_l.astype(cdt)
+                tr_l = {k: v.astype(cdt) for k, v in tr_l.items()}
+            Gu, Gv, Gtr = split_tendency_math(
+                cfg, grid_c, f_c, ue_c, ve_c, tr_c, ue_l, ve_l, tr_l
+            )
         else:
-            ue_k, ve_k, tr_k = ue_c, ve_c, tr_c
-        # TPU default fast path: transposed z-slab streaming Pallas kernel
-        # (~4x the XLA array path on v5e at the flagship grid); under
-        # shard_map it runs per-shard on the locally-extended fields, with
-        # x windows spanning the full local tile (no wrap fabrication)
-        res = zslab_tendencies(
-            cfg, grid_c, f_c, ue_k, ve_k, tr_k, x_wrap=(comm is None), ab2=ab2,
-            raw_fields=raw, storage_dtype=storage, t3_operands=t3ops,
-            g_t3=g_t3, upd_t3=upd_t3, wall_v=wall_v_kernel, integrals=use_ints,
-            raw_comm=raw_comm,
-        )
-        if ab2 is not None and use_ints:
-            Gu, Gv, Gtr, u_upd, v_upd, tr_upd, ints = res
-            updated = (u_upd, v_upd, tr_upd)
-            uv_ints = list(ints)
-            if comm is not None:
-                # zint(v*) must integrate the WALL-MASKED v* (the caller
-                # re-masks v_star itself); only south-most ranks own row 0,
-                # and only their LOCAL row 0 can be it (thin row write)
-                keep = (comm.y_offset(grid.Ny) != 0).astype(uv_ints[3].dtype)
-                uv_ints[3] = uv_ints[3].at[:, 0].multiply(keep)
-        elif ab2 is not None:
-            Gu, Gv, Gtr, u_upd, v_upd, tr_upd = res
-            updated = (u_upd, v_upd, tr_upd)
-        else:
-            Gu, Gv, Gtr = res
-        if overlap_kernel:
-            hx, hy = grid.hx, grid.hy
-            Nx, Ny = grid.Nx, grid.Ny
-            strips = [
-                ((slice(0, hx), slice(0, Ny)),
-                 _window_tendency(cfg, grid_c, f_c, ue_c, ve_c, tr_c,
-                                  0, hx, 0, Ny)),
-                ((slice(Nx - hx, Nx), slice(0, Ny)),
-                 _window_tendency(cfg, grid_c, f_c, ue_c, ve_c, tr_c,
-                                  Nx - hx, hx, 0, Ny)),
-                ((slice(hx, Nx - hx), slice(0, hy)),
-                 _window_tendency(cfg, grid_c, f_c, ue_c, ve_c, tr_c,
-                                  hx, Nx - 2 * hx, 0, hy)),
-                ((slice(hx, Nx - hx), slice(Ny - hy, Ny)),
-                 _window_tendency(cfg, grid_c, f_c, ue_c, ve_c, tr_c,
-                                  hx, Nx - 2 * hx, Ny - hy, hy)),
-            ]
-
-            # layout-aware stitch: with the transposed-G carry (g_t3) the
-            # big G arrays are (Z, Y, X) — the thin strip results transpose
-            # (cheap: strip volumes are halo-width slivers), never the
-            # full arrays
-            def stitch(big, strip, t3):
-                if t3:
-                    return big.at[:, sy, sx].set(_t3(strip).astype(big.dtype))
-                return big.at[sx, sy, :].set(strip.astype(big.dtype))
-
-            for (sx, sy), (gu_s, gv_s, gtr_s) in strips:
-                Gu = stitch(Gu, gu_s, g_t3)
-                Gv = stitch(Gv, gv_s, g_t3)
-                Gtr = {k: stitch(Gtr[k], gtr_s[k], g_t3) for k in Gtr}
-            if updated is not None:
-                # the kernel's fused AB2 update is garbage on the strips too:
-                # recompute field + dt*c1*G + dt*c2*G_prev there from the
-                # strip G (== the stitched values) and the stored previous
-                # tendencies (transposed under g_t3:
-                # ab2 = (ab[(1,2)], Gu_prev, Gv_prev, Gtr_prev))
-                ab, Gu_p, Gv_p, Gtr_p = ab2
-                dtc1, dtc2 = ab[0, 0], ab[0, 1]
-
-                def prev_slice(p, sx, sy):
-                    return _t3(p[:, sy, sx]) if g_t3 else p[sx, sy, :]
-
-                for (sx, sy), (gu_s, gv_s, gtr_s) in strips:
-                    un = (state.u[sx, sy, :] + dtc1 * gu_s.astype(dtype)
-                          + dtc2 * prev_slice(Gu_p, sx, sy))
-                    vn = (state.v[sx, sy, :] + dtc1 * gv_s.astype(dtype)
-                          + dtc2 * prev_slice(Gv_p, sx, sy))
-                    u_upd = stitch(u_upd, un, upd_t3)
-                    v_upd = stitch(v_upd, vn, upd_t3)
-                    tr_upd = {
-                        k: stitch(
-                            tr_upd[k],
-                            state.tracers[k][sx, sy, :]
-                            + dtc1 * gtr_s[k].astype(dtype)
-                            + dtc2 * prev_slice(Gtr_p[k], sx, sy),
-                            upd_t3)
-                        for k in tr_upd
-                    }
-                updated = (u_upd, v_upd, tr_upd)
-    elif not multifloat and (
-        cfg.kernels == "pallas"
-        or (cfg.kernels == "auto" and pallas_supported(cfg, grid, ue))
-    ):
-        Gu, Gv, Gtr = pallas_tendencies(cfg, grid_c, f_c, ue_c, ve_c, tr_c)
-    elif use_split:
-        # comm/compute overlap: core tendencies from a local-only extension
-        # (no ppermute in their dependency cone), strips from the exchange
-        ue_l = extend_field(grid, state.u, "u", None)
-        ve_l = extend_field(grid, state.v, "v", None)
-        tr_l = {k: extend_field(grid, c, "c", None) for k, c in state.tracers.items()}
-        if grid.immersed:
-            from gb25_tpu.grids.immersed import immersed_masks
-
-            _, um_l, vm_l = immersed_masks(grid, None)
-            ue_l = ue_l * um_l
-            ve_l = ve_l * vm_l
-        if multifloat:
-            ue_l = wrap_compute(ue_l, cfg.compute_dtype)
-            ve_l = wrap_compute(ve_l, cfg.compute_dtype)
-            tr_l = {k: wrap_compute(v, cfg.compute_dtype) for k, v in tr_l.items()}
-        elif cfg.compute_dtype is not None:
-            cdt = jnp.dtype(cfg.compute_dtype)
-            ue_l = ue_l.astype(cdt)
-            ve_l = ve_l.astype(cdt)
-            tr_l = {k: v.astype(cdt) for k, v in tr_l.items()}
-        Gu, Gv, Gtr = split_tendency_math(
-            cfg, grid_c, f_c, ue_c, ve_c, tr_c, ue_l, ve_l, tr_l
-        )
-    else:
-        Gu_e, Gv_e, Gtr_e = tendency_math(cfg, grid_c, f_c, ue_c, ve_c, tr_c)
-        Gu = grid.interior(Gu_e)
-        Gv = grid.interior(Gv_e)
-        Gtr = {k: grid.interior(v) for k, v in Gtr_e.items()}
+            Gu_e, Gv_e, Gtr_e = tendency_math(cfg, grid_c, f_c, ue_c, ve_c, tr_c)
+            Gu = grid.interior(Gu_e)
+            Gv = grid.interior(Gv_e)
+            Gtr = {k: grid.interior(v) for k, v in Gtr_e.items()}
     if cfg.compute_dtype is not None:
         Gu = Gu.astype(dtype)
         Gv = Gv.astype(dtype)
@@ -693,118 +393,36 @@ def compute_tendencies(cfg, grid, state, comm=None, surface_fluxes=None, restori
     else:
         Geta = jnp.zeros_like(state.eta)
 
-    # Post-kernel G increments (closure sources, restoring, surface fluxes)
-    # must also flow into the kernel-fused AB2 state update: G -> G + inc
-    # implies field_new -> field_new + dt*c1*inc.  The previous step's
-    # increment needs no correction — it was stored inside G_prev, which the
-    # kernel already consumed through its dt*c2 term.
-    dtc1 = ab2[0][0, 0] if ab2 is not None else None
-    if updated is not None:
-        u_upd, v_upd, tr_upd = updated
-        tr_upd = dict(tr_upd)
-
-    # transposed-G carry (g_t3): the G arrays here are (Z, Y, X) while the
-    # updated fields stay (X, Y, Z) — each increment is applied in the
-    # layout of its target (the transposes of the thin/elementwise
-    # increments are cheap or free; the POINT is that the big G arrays
-    # themselves never transpose)
-    def _g_src(src_i, src_t3, want_t3):
-        if not want_t3:
-            return src_i
-        return src_t3 if src_t3 is not None else _t3(src_i)
-
-    if G_e_source is not None:
-        Gtr["e"] = Gtr["e"] + _g_src(G_e_source, G_e_source_t3, g_t3)
-        if updated is not None:
-            tr_upd["e"] = tr_upd["e"] + dtc1 * _g_src(
-                G_e_source, G_e_source_t3, upd_t3)
-    if G_eps_source is not None:
-        Gtr["eps"] = Gtr["eps"] + _g_src(G_eps_source, G_eps_source_t3, g_t3)
-        if updated is not None:
-            tr_upd["eps"] = tr_upd["eps"] + dtc1 * _g_src(
-                G_eps_source, G_eps_source_t3, upd_t3)
+    for name, src in closure_sources.items():
+        Gtr[name] = Gtr[name] + src
 
     if restoring is not None:
         for name, (target, rate) in restoring.items():
-            inc = rate * (target - state.tracers[name])
-            inc_t = _t3(inc) if (g_t3 or upd_t3) else None
-            Gtr[name] = Gtr[name] + (inc_t if g_t3 else inc)
-            if updated is not None:
-                tr_upd[name] = tr_upd[name] + dtc1 * (
-                    inc_t if upd_t3 else inc)
+            Gtr[name] = Gtr[name] + rate * (target - state.tracers[name])
 
     if surface_fluxes is not None:
         hz, Nz = grid.hz, grid.Nz
         dz_top = grid.dz_c[0, 0, hz + Nz - 1]
-
-        def add_top(arr, inc, t3):
-            # deposit inc into the top cell as a plane-indexed update (one
-            # dynamic-update-slice touching a single z plane) — NOT a
-            # full-field pad+add pass, which reads+writes the whole 3-D
-            # array just to modify the surface (measured 0.4 ms/field/step
-            # at 768x384x64): z is axis 2 (X,Y,Z) or axis 0 (t3: Z,Y,X)
-            if t3:
-                return arr.at[-1].add(jnp.transpose(inc, (1, 0)))
-            return arr.at[:, :, -1].add(inc)
-
-        if uv_ints is not None and grid.immersed:
-            # the deposits below land on G/u*/v* BEFORE the immersed re-mask,
-            # so their contribution to the depth integrals must carry the
-            # top-plane face fluid masks (zero where an island pierces the
-            # surface layer)
-            um_top = grid.interior(u_mask_e)[:, :, -1]
-            vm_top = grid.interior(v_mask_e)[:, :, -1]
-        else:
-            um_top = vm_top = 1.0
-
+        # each deposit is a plane-indexed update of the top cell (one
+        # dynamic-update-slice of a single z plane), not a full-field
+        # pad + add that reads and writes the whole 3-D array
         for name, flux in surface_fluxes.items():
             fa = flux / dz_top
             if name == "u":
-                Gu = add_top(Gu, fa, g_t3)
-                if updated is not None:
-                    u_upd = add_top(u_upd, dtc1 * fa, upd_t3)
-                if uv_ints is not None:
-                    # the top-cell deposit integrates to exactly the flux
-                    uv_ints[2] = uv_ints[2] + dtc1 * fa * dz_top * um_top
+                Gu = Gu.at[:, :, -1].add(fa)
             elif name == "v":
-                Gv = add_top(Gv, fa, g_t3)
-                if updated is not None:
-                    v_upd = add_top(v_upd, dtc1 * fa, upd_t3)
-                if uv_ints is not None:
-                    # wall row excluded: v* is wall-masked after the deposit
-                    inc_v = fa * dz_top * vm_top
-                    if comm is None:
-                        inc_v = inc_v.at[:, 0].set(0.0)
-                    else:  # only local row 0 can be the global wall
-                        keep_v = (comm.y_offset(grid.Ny) != 0).astype(
-                            inc_v.dtype)
-                        inc_v = inc_v.at[:, 0].multiply(keep_v)
-                    uv_ints[3] = uv_ints[3] + dtc1 * inc_v
+                Gv = Gv.at[:, :, -1].add(fa)
             else:
-                Gtr[name] = add_top(Gtr[name], fa, g_t3)
-                if updated is not None:
-                    tr_upd[name] = add_top(tr_upd[name], dtc1 * fa, upd_t3)
+                Gtr[name] = Gtr[name].at[:, :, -1].add(fa)
 
     if grid.immersed:
-        # the stored G feeds next step's dt*c2 term masked, and the fused
-        # update must land at 0 on solid faces exactly like the unfused path
-        # (state.u is stage-1 masked and masked-G updates keep it 0 there)
-        um, vm = grid.interior(u_mask_e), grid.interior(v_mask_e)
-        # the masks are broadcast-computed from 2-D bathymetry, so XLA emits
-        # the transposed variant directly (no extra pass)
-        Gu = Gu * (_t3(um) if g_t3 else um)
-        Gv = Gv * (_t3(vm) if g_t3 else vm)
-        if updated is not None:
-            u_upd = u_upd * (_t3(um) if upd_t3 else um)
-            v_upd = v_upd * (_t3(vm) if upd_t3 else vm)
-    # Always re-mask: the kernel's wall_v zeroed ITS Gv output, but the
-    # post-kernel increments above (v surface flux deposit, explicit-FS eta
-    # gradient) can re-add wall-row values. On a single device this is a
-    # thin in-place row write (mask_v_wall), so the redundancy is free.
+        # the stored G feeds next step's dt*c2 term: keep it 0 on solid faces
+        Gu = Gu * grid.interior(u_mask_e)
+        Gv = Gv * grid.interior(v_mask_e)
+    # the v surface-flux deposit and the explicit-FS eta gradient can put
+    # values on the southern wall row
     Gv = mask_v_wall(grid, Gv, comm)
-    if updated is not None:
-        updated = (u_upd, v_upd, tr_upd)
-    return Gu, Gv, Geta, Gtr, diffusivities, updated, uv_ints
+    return Gu, Gv, Geta, Gtr, diffusivities
 
 
 def _ab2_coeffs(cfg, state, dtype):
@@ -822,9 +440,9 @@ def premask_state(grid, state, comm=None):
     ``premasked=True`` to every in-loop ``time_step``: the step's own
     epilogue re-masks u/v after the barotropic correction (and after the
     north-fold projection), so "velocities are masked" is a loop invariant
-    and the per-iteration stage-1 mask is two redundant full-field HBM
-    passes (~1 ms/step at the climate size).  Masking is idempotent
-    (exact 0/1 multiply), so hoisting it is bitwise-neutral."""
+    and the per-iteration stage-1 mask is two redundant full-field passes.
+    Masking is idempotent (exact 0/1 multiply), so hoisting it is
+    bitwise-neutral."""
     if not grid.immersed:
         return state
     from gb25_tpu.grids.immersed import interior_masks
@@ -833,13 +451,39 @@ def premask_state(grid, state, comm=None):
     return state.replace(u=state.u * u_mask, v=state.v * v_mask)
 
 
-def time_step(cfg: HydrostaticConfig, grid, state: HydrostaticState, dt, comm=None,
-              surface_fluxes=None, restoring=None, g_t3=False, premasked=False):
-    """One full quasi-AB2 hydrostatic time step (stages 1-8). Pure function.
+def _implicit_solves(cfg, grid, diffusivities, u, v, tracers, dt):
+    """Stage: vertically-implicit closure. Fields sharing a diffusivity (u
+    with v; the tracers without their own) solve together, sharing one
+    forward elimination (ops/tridiagonal.py)."""
+    hz, Nz = grid.hz, grid.Nz
+    dzc = grid.dz_c[:, :, hz : hz + Nz]
+    dzf = grid.dz_f[:, :, hz : hz + Nz]
+    tracers = dict(tracers)
+    if isinstance(cfg.closure, VerticalScalarDiffusivity):
+        ku, kc = cfg.closure.nu, cfg.closure.kappa
+        special, damping = {}, {}
+    else:  # CATKE / k-eps: lagged diffusivities from stage 3
+        ku, kc = diffusivities["kappa_u"], diffusivities["kappa_c"]
+        special = {k: diffusivities[f"kappa_{k}"] for k in ("e", "eps")
+                   if f"kappa_{k}" in diffusivities}
+        damping = {"e": diffusivities["lam_e"]} if "lam_e" in diffusivities else {}
+    u, v = implicit_vertical_diffusion((u, v), ku, dt, dzc, dzf)
+    plain = tuple(k for k in tracers if k not in special)
+    if plain:
+        sols = implicit_vertical_diffusion(
+            tuple(tracers[k] for k in plain), kc, dt, dzc, dzf)
+        tracers.update(zip(plain, sols))
+    for k, kap in special.items():
+        tracers[k] = implicit_vertical_diffusion(
+            tracers[k], kap, dt, dzc, dzf, damping=damping.get(k))
+    for k in special:
+        tracers[k] = jnp.maximum(tracers[k], 0.0)
+    return u, v, tracers
 
-    ``g_t3``: the stored tendencies in ``state`` arrive AND leave in the
-    kernel's transposed (Z, Y, X) layout (the transposed-G carry of
-    ``loop``; see ``_g_t3_ok``). Only ``loop`` sets this.
+
+def time_step(cfg: HydrostaticConfig, grid, state: HydrostaticState, dt, comm=None,
+              surface_fluxes=None, restoring=None, premasked=False):
+    """One full quasi-AB2 hydrostatic time step (stages 1-8). Pure function.
 
     ``premasked``: the caller guarantees the stage-1 immersed mask already
     holds on ``state.u/v`` (see ``premask_state``); only loop wrappers set
@@ -852,68 +496,29 @@ def time_step(cfg: HydrostaticConfig, grid, state: HydrostaticState, dt, comm=No
         # precompile.jl:34): barotropic_substep depth-integrates state.u/v
         # directly, so an unmasked initial condition (e.g. noise on land)
         # would otherwise flux mass into land columns on the first step
-        from gb25_tpu.grids.immersed import interior_masks
-
-        u_mask, v_mask = interior_masks(grid, comm)
-        state = state.replace(u=state.u * u_mask, v=state.v * v_mask)
+        state = premask_state(grid, state, comm)
     c1, c2 = _ab2_coeffs(cfg, state, dtype)
 
-    # kernel-fused AB2 update (flagship fast path): the z-slab kernel writes
-    # u*, v*, tracers directly from its VMEM windows, saving one full HBM
-    # read+write round trip per prognostic field.  The barotropic forcing
-    # zint(G_ab) is then recovered algebraically from (zint(u*) - U0) / dt
-    # inside barotropic_substep, so no G_ab array is ever materialized.
-    # works sharded too: the kernel runs per-shard on local tiles, the prev-G
-    # blocks are local, and the derived barotropic forcing
-    # zint(G_ab) = (zint(u*) - U0)/dt needs no cross-device data
-    # Closure, immersed bathymetry, restoring, and surface fluxes are all
-    # compatible with the fusion: their G increments happen after the kernel
-    # and compute_tendencies folds each one into the fused update as
-    # field += dt*c1*inc (and masks solid faces), so the climate
-    # configuration (tripolar + gaussian islands + CATKE + coupling fluxes)
-    # keeps the kernel fast path (VERDICT r2 item 3).
-    fuse_ab2 = (
-        cfg.compute_dtype is None
-        and isinstance(cfg.free_surface, SplitExplicitFreeSurface)
-    )
-    ab2 = None
-    if fuse_ab2:
-        ab2 = (jnp.stack([dt * c1, dt * c2]).reshape(1, 2), state.Gu, state.Gv,
-               state.Gtracers)
-    Gu, Gv, Geta, Gtr, diffusivities, updated, uv_ints = compute_tendencies(
-        cfg, grid, state, comm, surface_fluxes, restoring, ab2=ab2, g_t3=g_t3
+    Gu, Gv, Geta, Gtr, diffusivities = compute_tendencies(
+        cfg, grid, state, comm, surface_fluxes, restoring
     )
 
-    # with the transposed-G carry + a closure, the kernel's updated fields
-    # stay (Z, Y, X) through the barotropic correction and the increments,
-    # all the way into the implicit solves (which want that layout anyway)
-    upd_t3 = g_t3 and diffusivities is not None and updated is not None
-
-    if updated is not None:
-        u_star, v_star, tracers = updated
-        # the in-kernel update used the unmasked Gv; restore the wall row
-        # (the array path updates with the already-masked Gv)
-        v_star = mask_v_wall(grid, v_star, comm)
-        Gu_ab = Gv_ab = None
-    else:
-        Gu_ab = c1 * Gu + c2 * state.Gu
-        Gv_ab = c1 * Gv + c2 * state.Gv
-        u_star = state.u + dt * Gu_ab
-        v_star = state.v + dt * Gv_ab
-        tracers = {k: state.tracers[k] + dt * (c1 * Gtr[k] + c2 * state.Gtracers[k])
-                   for k in state.tracers}
+    Gu_ab = c1 * Gu + c2 * state.Gu
+    Gv_ab = c1 * Gv + c2 * state.Gv
+    u_star = state.u + dt * Gu_ab
+    v_star = state.v + dt * Gv_ab
+    tracers = {k: state.tracers[k] + dt * (c1 * Gtr[k] + c2 * state.Gtracers[k])
+               for k in state.tracers}
 
     if isinstance(cfg.free_surface, SplitExplicitFreeSurface):
-        eta, u_new, v_new = barotropic_substep(
-            cfg, grid, state, u_star, v_star, Gu_ab, Gv_ab, dt, comm,
-            uv_t3=upd_t3, integrals=uv_ints,
-        )
+        with jax.named_scope("barotropic"):
+            eta, u_new, v_new = barotropic_substep(
+                cfg, grid, state, u_star, v_star, Gu_ab, Gv_ab, dt, comm)
     else:
         eta = state.eta + dt * (c1 * Geta + c2 * state.Geta)
         u_new, v_new = u_star, v_star
 
     v_new = mask_v_wall(grid, v_new, comm)
-
 
     if getattr(grid, "north_fold", False):
         # enforce the T-pivot seam self-consistency (NEMO lbc_lnk analog)
@@ -921,118 +526,25 @@ def time_step(cfg: HydrostaticConfig, grid, state: HydrostaticState, dt, comm=No
             from gb25_tpu.parallel.fold import north_fold_projection_dist
 
             u_new, v_new, eta, tracers = north_fold_projection_dist(
-                comm, grid, u_new, v_new, eta, tracers,
-                uv_t3=upd_t3, tracers_t3=upd_t3,
-            )
+                comm, grid, u_new, v_new, eta, tracers)
         else:
             from gb25_tpu.grids.tripolar import north_fold_projection
 
             u_new, v_new, eta, tracers = north_fold_projection(
-                grid, u_new, v_new, eta, tracers, tracers_t3=upd_t3,
-                uv_t3=upd_t3)
+                grid, u_new, v_new, eta, tracers)
 
     if grid.immersed:
         # re-mask after the barotropic correction touched full columns
-        # (masks are broadcast-computed from 2-D bathymetry: the transposed
-        # variant costs no extra pass)
         from gb25_tpu.grids.immersed import interior_masks
 
         u_mask, v_mask = interior_masks(grid, comm)
-        if upd_t3:
-            u_mask = _t3(u_mask)
-            v_mask = _t3(v_mask)
         u_new = u_new * u_mask
         v_new = v_new * v_mask
 
-    # stage: vertically-implicit closure
-    if isinstance(cfg.closure, VerticalScalarDiffusivity):
-        hz, Nz = grid.hz, grid.Nz
-        dzc = grid.dz_c[:, :, hz : hz + Nz]
-        dzf = grid.dz_f[:, :, hz : hz + Nz]
-        nu, kap = cfg.closure.nu, cfg.closure.kappa
-        u_new = implicit_vertical_diffusion(u_new, nu, dt, dzc, dzf)
-        v_new = implicit_vertical_diffusion(v_new, nu, dt, dzc, dzf)
-        tracers = {k: implicit_vertical_diffusion(c, kap, dt, dzc, dzf)
-                   for k, c in tracers.items()}
-    elif diffusivities is not None:  # CATKE / k-eps: lagged kappas from stage 3
-        hz, Nz = grid.hz, grid.Nz
-        dzc = grid.dz_c[:, :, hz : hz + Nz]
-        dzf = grid.dz_f[:, :, hz : hz + Nz]
-        kt3 = diffusivities.get("t3", False)  # kappas arrive (Z, Y, X)
-        ku, kc = diffusivities["kappa_u"], diffusivities["kappa_c"]
-        special = {"e": diffusivities.get("kappa_e"), "eps": diffusivities.get("kappa_eps")}
-        damping = {"e": diffusivities.get("lam_e")}  # implicit TKE dissipation
-
-        # fields sharing a kappa (u & v; the plain tracers) solve in ONE
-        # Pallas call against a shared forward elimination
-        from gb25_tpu.ops.pallas_tridiag import (
-            pallas_implicit_diffusion,
-            tridiag_supported,
-        )
-
-        def un_t3(a):
-            return None if a is None else _t3(a)
-
-        # one support probe decides the stage's layout: if the Pallas solver
-        # can't run this shape at all, drop every transposed array up front
-        # and take the scan path in the standard (X, Y, Z) layout
-        if (kt3 or upd_t3) and not tridiag_supported(
-            (u_new, v_new), ku, dzc, dzf, kappa_t3=kt3, fields_t3=upd_t3
-        ):
-            if kt3:
-                ku, kc = un_t3(ku), un_t3(kc)
-                special = {k: un_t3(v) for k, v in special.items()}
-                damping = {k: un_t3(v) for k, v in damping.items()}
-                kt3 = False
-            if upd_t3:
-                u_new, v_new = un_t3(u_new), un_t3(v_new)
-                tracers = {k: un_t3(v) for k, v in tracers.items()}
-                upd_t3 = False
-
-        if tridiag_supported((u_new, v_new), ku, dzc, dzf, kappa_t3=kt3,
-                             fields_t3=upd_t3):
-            u_new, v_new = pallas_implicit_diffusion(
-                (u_new, v_new), ku, dt, dzc, dzf, kappa_t3=kt3,
-                fields_t3=upd_t3)
-        else:
-            u_new = implicit_vertical_diffusion(u_new, ku, dt, dzc, dzf)
-            v_new = implicit_vertical_diffusion(v_new, ku, dt, dzc, dzf)
-        plain = tuple(k for k in tracers
-                      if special.get(k) is None and damping.get(k) is None)
-        tracers = dict(tracers)
-        if len(plain) > 1 and tridiag_supported(
-            tuple(tracers[k] for k in plain), kc, dzc, dzf, kappa_t3=kt3,
-            fields_t3=upd_t3,
-        ):
-            sols = pallas_implicit_diffusion(
-                tuple(tracers[k] for k in plain), kc, dt, dzc, dzf,
-                kappa_t3=kt3, fields_t3=upd_t3,
-            )
-            tracers.update(zip(plain, sols))
-            rest = [k for k in tracers if k not in plain]
-        else:
-            rest = list(tracers)
-        for k in rest:
-            kap_k = special.get(k) if special.get(k) is not None else kc
-            damp_k = damping.get(k)
-            if tridiag_supported(tracers[k], kap_k, dzc, dzf, damping=damp_k,
-                                 kappa_t3=kt3, fields_t3=upd_t3):
-                tracers[k] = pallas_implicit_diffusion(
-                    tracers[k], kap_k, dt, dzc, dzf, damping=damp_k,
-                    kappa_t3=kt3, fields_t3=upd_t3,
-                )
-            else:
-                if kt3:
-                    kap_k = un_t3(kap_k)
-                    damp_k = un_t3(damp_k)
-                if upd_t3:
-                    tracers[k] = un_t3(tracers[k])
-                tracers[k] = implicit_vertical_diffusion(
-                    tracers[k], kap_k, dt, dzc, dzf, damping=damp_k,
-                )
-        tracers["e"] = jnp.maximum(tracers["e"], 0.0)
-        if "eps" in tracers:
-            tracers["eps"] = jnp.maximum(tracers["eps"], 0.0)
+    if isinstance(cfg.closure, VerticalScalarDiffusivity) or diffusivities is not None:
+        with jax.named_scope("vertical_solve"):
+            u_new, v_new, tracers = _implicit_solves(
+                cfg, grid, diffusivities, u_new, v_new, tracers, dt)
 
     from gb25_tpu.models.state import advance_clock
 
@@ -1046,182 +558,10 @@ def time_step(cfg: HydrostaticConfig, grid, state: HydrostaticState, dt, comm=No
 
 def loop(cfg, grid, state, dt, n, comm=None):
     """n time steps as one on-device loop (reference: GordonBell25.loop!,
-    /root/reference/src/timestepping_utils.jl:37-45 — a single HLO while).
-
-    On the fused-AB2 kernel fast path the loop carries the stored tendencies
-    (Gu/Gv/Gtracers) in the kernel's transposed (Z, Y, X) layout across
-    iterations (``_g_t3_ok``): both their producer (the kernel epilogue) and
-    their only consumer (next step's dt*c2 prev term) are the z-slab kernel,
-    whose pallas custom-call operand/result layouts are fixed — XLA cannot
-    relayout across them, so the per-step un-transpose + re-transpose pair
-    is real HBM traffic (~16 interior passes at the flagship grid). The
-    transposes are exact permutes, so the loop is bitwise-identical to
-    repeated ``time_step`` calls (tested)."""
-    import jax
-
-    if _fast_loop_ok(cfg, grid, state, comm):
-        return _loop_extended(cfg, grid, state, dt, n)
-
+    /root/reference/src/timestepping_utils.jl:37-45 — a single HLO while)."""
     state = premask_state(grid, state, comm)
-    if _g_t3_ok(cfg, grid, state, comm):
-        return g_t3_loop(
-            lambda s: time_step(cfg, grid, s, dt, comm, g_t3=True,
-                                premasked=True), state, n)
 
     def body(_, s):
         return time_step(cfg, grid, s, dt, comm, premasked=True)
 
     return jax.lax.fori_loop(0, n, body, state)
-
-
-def transpose_G(state):
-    """Transpose the stored tendencies between (X, Y, Z) and the kernel's
-    (Z, Y, X) layout (the transform is its own inverse). Single source of
-    truth for the transposed-G carry contract used by ``loop``,
-    ``coupled.coupled_loop`` and the climate run script."""
-    return state.replace(Gu=_t3(state.Gu), Gv=_t3(state.Gv),
-                         Gtracers={k: _t3(v) for k, v in state.Gtracers.items()})
-
-
-def g_t3_loop(step_body, state, n):
-    """``fori_loop`` wrapper for the transposed-G carry: transpose the stored
-    tendencies in, run ``step_body(state)`` (which must pass ``g_t3=True`` to
-    ``time_step``) n times, transpose back out."""
-    out = jax.lax.fori_loop(0, n, lambda _, s: step_body(s), transpose_G(state))
-    return transpose_G(out)
-
-
-def _g_t3_ok(cfg, grid, state, comm):
-    """Transposed-G carry eligibility: the fused-AB2 kernel path. Every
-    post-kernel G consumer handles the (Z, Y, X) layout: the v wall mask
-    acts on axis 1 (y in both layouts), and the closure/flux/restoring
-    increments are applied per-layout (see compute_tendencies). Kill
-    switch: GB25_G_T3=0.
-
-    Distributed (comm is not None): also eligible — the overlap stitch and
-    the distributed north-fold projection are both layout-aware (the
-    projection touches one seam row, transposed as a thin plane).  Without
-    the carry a decomposed step pays a full un-transpose + re-transpose
-    pair per stored tendency per step (~8 HBM passes; measured in the
-    round-4 forced-comm itemization)."""
-    import os
-
-    from gb25_tpu.models.catke import CATKEVerticalDiffusivity
-    from gb25_tpu.models.keps import TKEDissipationVerticalDiffusivity
-    from gb25_tpu.ops.pallas_zslab import zslab_supported
-
-    return (
-        bool(int(os.environ.get("GB25_G_T3", "1")))
-        and cfg.compute_dtype is None
-        and (cfg.closure is None
-             or isinstance(cfg.closure, (CATKEVerticalDiffusivity,
-                                         TKEDissipationVerticalDiffusivity)))
-        and grid.Nx % 128 == 0  # xtail == 0: prev-G blocks feed unpadded
-        and isinstance(cfg.free_surface, SplitExplicitFreeSurface)
-        and (
-            cfg.kernels == "zslab"
-            or (cfg.kernels == "auto"
-                and zslab_supported(cfg, grid, state.u, comm))
-        )
-    )
-
-
-def _fast_loop_ok(cfg, grid, state, comm):
-    import os
-
-    from gb25_tpu.ops.pallas_zslab import zslab_supported
-
-    return (
-        # measured SLOWER than re-extension on v5e (67.5 vs 58.4 ms/step at
-        # flagship size): XLA copies the carried extended buffers on every
-        # in-place ghost-slab update because the update values are computed
-        # from the same buffer (no provable disjointness), so the "in-place"
-        # refresh costs more than the pad+copy it replaces.  Kept opt-in for
-        # future XLA versions.
-        bool(int(os.environ.get("GB25_EXTENDED_CARRY", "0")))
-        and comm is None
-        and cfg.closure is None
-        and not grid.immersed
-        and not getattr(grid, "north_fold", False)
-        and cfg.compute_dtype is None
-        and isinstance(cfg.free_surface, SplitExplicitFreeSurface)
-        and (
-            cfg.kernels == "zslab"
-            or (cfg.kernels == "auto" and zslab_supported(cfg, grid, state.u))
-        )
-    )
-
-
-def _loop_extended(cfg, grid, state, dt, n):
-    """Extended-carry fused loop (flagship fast path): prognostic u/v/tracers
-    ride the fori_loop as halo-extended arrays; the z-slab kernel consumes
-    them directly (tendencies + fused AB2 update) and the updates are written
-    back into the extended buffers in place."""
-    from gb25_tpu.ops.halos import refresh_halos_ext
-    from gb25_tpu.ops.pallas_zslab import zslab_tendencies
-    from gb25_tpu.models.state import advance_clock
-
-    dtype = state.u.dtype
-    dt = jnp.asarray(dt, dtype)
-    hx, hy, hz = grid.halo
-    Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
-    f_ff = coriolis_ff(grid, cfg.coriolis).astype(dtype)
-
-    def set_interior(e, a):
-        return e.at[hx : hx + Nx, hy : hy + Ny, hz : hz + Nz].set(a)
-
-    carry0 = dict(
-        ue=extend_field(grid, state.u, "u"),
-        ve=extend_field(grid, state.v, "v"),
-        tre={k: extend_field(grid, c, "c") for k, c in state.tracers.items()},
-        eta=state.eta,
-        Gu=state.Gu, Gv=state.Gv, Gtr=state.Gtracers,
-        time=state.time, time_lo=state.time_lo, iteration=state.iteration,
-    )
-
-    def body(_, c):
-        ue = refresh_halos_ext(grid, c["ue"], "u")
-        ve = refresh_halos_ext(grid, c["ve"], "v")
-        tre = {k: refresh_halos_ext(grid, v, "c") for k, v in c["tre"].items()}
-
-        st = HydrostaticState(
-            u=grid.interior(ue), v=grid.interior(ve), eta=c["eta"],
-            tracers={k: grid.interior(v) for k, v in tre.items()},
-            Gu=c["Gu"], Gv=c["Gv"], Geta=jnp.zeros_like(c["eta"]),
-            Gtracers=c["Gtr"],
-            time=c["time"], time_lo=c["time_lo"], iteration=c["iteration"],
-        )
-        c1, c2 = _ab2_coeffs(cfg, st, dtype)
-        ab = jnp.stack([dt * c1, dt * c2]).reshape(1, 2)
-        # wall_v + integrals mirror time_step's serial kernel call exactly —
-        # all three loop forms (plain, g_t3, extended-carry) must stay
-        # bitwise-identical (tests/test_zslab.py)
-        Gu, Gv, Gtr, u_star, v_star, tr_new, ints = zslab_tendencies(
-            cfg, grid, f_ff, ue, ve, tre,
-            ab2=(ab, c["Gu"], c["Gv"], c["Gtr"]), wall_v=True, integrals=True,
-        )
-        v_star = mask_v_wall(grid, v_star)
-
-        eta, u_new, v_new = barotropic_substep(
-            cfg, grid, st, u_star, v_star, None, None, dt, None,
-            integrals=list(ints),
-        )
-        v_new = mask_v_wall(grid, v_new)
-
-        t_new, t_lo = advance_clock(c["time"], c["time_lo"], dt)
-        return dict(
-            ue=set_interior(ue, u_new),
-            ve=set_interior(ve, v_new),
-            tre={k: set_interior(tre[k], tr_new[k]) for k in tre},
-            eta=eta, Gu=Gu, Gv=Gv, Gtr=Gtr,
-            time=t_new, time_lo=t_lo, iteration=c["iteration"] + 1,
-        )
-
-    c = jax.lax.fori_loop(0, n, body, carry0)
-    return state.replace(
-        u=grid.interior(c["ue"]), v=grid.interior(c["ve"]), eta=c["eta"],
-        tracers={k: grid.interior(v) for k, v in c["tre"].items()},
-        Gu=c["Gu"], Gv=c["Gv"], Geta=jnp.zeros_like(c["eta"]),
-        Gtracers=c["Gtr"],
-        time=c["time"], time_lo=c["time_lo"], iteration=c["iteration"],
-    )

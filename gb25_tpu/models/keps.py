@@ -51,10 +51,8 @@ def keps_diffusivities(closure, grid, ue, ve, be, ee, epse):
 
 
 def keps_math(closure, ue, ve, be, ee, epse, dzf):
-    """The k-epsilon formulation as a layout-agnostic pure function — runs
-    on halo-extended (X, Y, Z) arrays AND on transposed (Z, Y, X) VMEM
-    windows inside the fused column-closure kernel (ops/pallas_catke.py)
-    under ``stencils.axis_order``, like ``catke_math``."""
+    """The k-epsilon formulation as a pure function of halo-extended
+    (X, Y, Z) arrays, like ``catke_math``."""
     from gb25_tpu.ops.stencils import dz_f as d_zf, i_f, ix_c, iy_c, iz_c
     N2 = d_zf(be) / dzf
     dudz = d_zf(ue) / dzf

@@ -3,7 +3,7 @@
 Reference context: GB-25's weak-scaling companion benchmark is a spectral
 shallow-water *atmosphere* (SpeedyWeather; BASELINE.md atmosphere rows).
 This finite-volume rotating shallow-water model provides that model family
-TPU-natively on the same staggered grids, reusing the framework's metrics,
+on the same staggered grids, reusing the framework's metrics,
 stencils, halo machinery (single-device and shard_map/ppermute) and quasi-AB2
 stepping:
 

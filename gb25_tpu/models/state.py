@@ -43,7 +43,7 @@ class HydrostaticState:
 def advance_clock(time, time_lo, dt):
     """Compensated (Kahan) clock accumulation.
 
-    The reference keeps a float64 clock; on TPU (no native f64) a plain f32
+    The reference keeps a float64 clock; in a float32 state a plain f32
     ``time + dt`` stops advancing once time ~ 1e6-1e7 s (the 30 s increment
     falls below one ulp). Kahan summation carries the rounding error in a
     second f32 scalar, so the accumulated clock error stays O(ulp(total))

@@ -159,7 +159,7 @@ class TEOS10EquationOfState:
 
     Depth-only terms (r0) are omitted — they are dynamically inert (their
     horizontal pressure gradient vanishes) and dropping them preserves f32
-    precision, which matters since the model runs in bf16/f32 on TPU.
+    precision, which matters since the model runs in bf16/f32.
     """
 
     rho0: float = 1020.0

@@ -142,158 +142,6 @@ def _extend_3d_fast(a, halo, xmodes, ymodes, zmodes):
     return e
 
 
-def refresh_halos_ext(grid, e, kind: str):
-    """Recompute the ghost slabs of an already-extended array in place from
-    its interior — the strip-only analog of ``_extend_3d_fast`` for loops
-    that carry extended arrays across iterations (no pad, no interior copy;
-    XLA performs the thin slab writes in place)."""
-    (xlo, xhi), (ylo, yhi), (zlo, zhi) = FIELD_BCS[kind]
-    hx, hy, hz = grid.halo
-    Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
-    if hx:
-        lo, hi = ghost_blocks(e[hx : hx + Nx], hx, 0, xlo, xhi)
-        e = e.at[:hx].set(lo)
-        e = e.at[hx + Nx :].set(hi)
-    if hy:
-        lo, hi = ghost_blocks(e[:, hy : hy + Ny], hy, 1, ylo, yhi)
-        e = e.at[:, :hy].set(lo)
-        e = e.at[:, hy + Ny :].set(hi)
-    if hz:
-        lo, hi = ghost_blocks(e[:, :, hz : hz + Nz], hz, 2, zlo, zhi)
-        e = e.at[:, :, :hz].set(lo)
-        e = e.at[:, :, hz + Nz :].set(hi)
-    return e
-
-
-def extend_field_t3(grid, a, kind: str, comm=None):
-    """Single-device extension directly in the kernel's transposed (Z, Y, X)
-    layout: ONE materialization (XLA fuses the transpose into the pad
-    producer) instead of ``_t3(extend_field(...))``'s two (extend pass +
-    transpose pass) — the z-slab kernel's inputs are the hot path's largest
-    HBM traffic besides the kernel itself.
-
-    ``comm`` (round 4): the DISTRIBUTED extension in the same fused form —
-    ring exchange of thin edge strips (MeshComm.exchange_strips), thin
-    transposed ghost writes, one big pad materialization.  Matches
-    ``_t3(extend_field(grid, a, kind, comm))`` (the x-then-y fill order:
-    the y strips/BCs are built from x-extended edge BANDS, so corners
-    agree).  Non-fold grids only; fold grids fall back to the two-pass
-    form.
-
-    Bitwise-equal to ``transpose(extend_field(grid, a, kind, None))``: every
-    BC mode in FIELD_BCS acts within its own axis (wrap copies whole
-    complete pencils; mirror/antimirror/zerograd/zero are per-pencil), so
-    the axis fill order commutes on the corners (tests/test_zslab.py).
-
-    Tripolar (north-fold) grids are supported too: the big pad
-    materialization happens directly in (Z, Y, X) and the fold/south/wrap
-    ghost SLABS — thin (hy rows / hx columns) — are computed with the same
-    code as ``grids.tripolar.extend_field_tripolar`` and written transposed,
-    in the same order (fold, south, x wrap, then z), so corners match
-    bitwise (tests/test_zslab.py::test_extend_field_t3_tripolar).
-    """
-    (xlo, xhi), (ylo, yhi), (zlo, zhi) = FIELD_BCS[kind]
-    hx, hy, hz = grid.halo
-    if comm is not None:
-        if getattr(grid, "north_fold", False):
-            # distributed FOLD extension in the fused transposed form
-            # (round 5: the climate decomposed path previously paid
-            # extend + transpose per kernel input here, ~6 extra HBM
-            # passes/step at 1/4 degree).  Mirrors MeshComm.extend_xy_fold's
-            # order — y (south BC / ring / fold at the top rank row) first,
-            # then the x ring on the y-extended tile (edge strips carry
-            # their y-ghost rows, so corners match bitwise).
-            from jax import lax as _lax
-
-            from gb25_tpu.parallel.fold import fold_ghosts_north_dist
-
-            Nx, Ny, Nz = a.shape
-            t3 = lambda x: jnp.transpose(x, (2, 1, 0))
-            R = comm.Ry
-            fold_hi = fold_ghosts_north_dist(comm, a, hy, kind)
-            lo_bc, _ = ghost_blocks(a, hy, 1, ylo, "zerograd")
-            if R == 1 and not comm.force_ring:
-                lo_y, hi_y = lo_bc, fold_hi
-            else:
-                recv_lo = _lax.ppermute(
-                    a[:, -hy:], comm.y_axis,
-                    [(r, r + 1) for r in range(R - 1)])
-                recv_hi = _lax.ppermute(
-                    a[:, :hy], comm.y_axis,
-                    [(r, r - 1) for r in range(1, R)])
-                idx = _lax.axis_index(comm.y_axis)
-                lo_y = jnp.where(idx == 0, lo_bc, recv_lo)
-                hi_y = jnp.where(idx == R - 1, fold_hi, recv_hi)
-            send_dn_x = jnp.concatenate(
-                [lo_y[:hx], a[:hx], hi_y[:hx]], axis=1)
-            send_up_x = jnp.concatenate(
-                [lo_y[-hx:], a[-hx:], hi_y[-hx:]], axis=1)
-            lo_x, hi_x = comm.exchange_strips(
-                send_dn_x, send_up_x, comm.x_axis, comm.Rx, True,
-                bc_lo=send_up_x, bc_hi=send_dn_x)
-            e = jnp.pad(t3(a), ((hz, hz), (hy, hy), (hx, hx)))
-            e = e.at[hz : hz + Nz, :hy, hx : hx + Nx].set(t3(lo_y))
-            e = e.at[hz : hz + Nz, hy + Ny :, hx : hx + Nx].set(t3(hi_y))
-            e = e.at[hz : hz + Nz, :, :hx].set(t3(lo_x))
-            e = e.at[hz : hz + Nz, :, hx + Nx :].set(t3(hi_x))
-            if hz:
-                lo_z, hi_z = ghost_blocks(e[hz : hz + Nz], hz, 0, zlo, zhi)
-                e = e.at[:hz].set(lo_z)
-                e = e.at[hz + Nz :].set(hi_z)
-            return e
-        Nx, Ny, Nz = a.shape
-        t3 = lambda x: jnp.transpose(x, (2, 1, 0))
-        # x ring (periodic): my own opposite strips double as the R==1 wrap
-        send_dn_x, send_up_x = a[:hx], a[-hx:]
-        lo_x, hi_x = comm.exchange_strips(
-            send_dn_x, send_up_x, comm.x_axis, comm.Rx, True,
-            bc_lo=send_up_x, bc_hi=send_dn_x)
-        # y exchange operates on the x-EXTENDED field; its edge BANDS
-        # (width hy+1: antimirror_face BCs read row 1..hy) are assembled
-        # from the x strips without materializing the full extension
-        hb = hy + 1
-        lo_band = jnp.concatenate(
-            [lo_x[:, :hb], a[:, :hb], hi_x[:, :hb]], axis=0)
-        hi_band = jnp.concatenate(
-            [lo_x[:, Ny - hb:], a[:, Ny - hb:], hi_x[:, Ny - hb:]], axis=0)
-        bc_lo_y, _ = ghost_blocks(lo_band, hy, 1, ylo, ylo)
-        _, bc_hi_y = ghost_blocks(hi_band, hy, 1, yhi, yhi)
-        lo_y, hi_y = comm.exchange_strips(
-            lo_band[:, :hy], hi_band[:, hb - hy:], comm.y_axis, comm.Ry,
-            comm.y_periodic, bc_lo_y, bc_hi_y)
-        e = jnp.pad(t3(a), ((hz, hz), (hy, hy), (hx, hx)))
-        e = e.at[hz : hz + Nz, hy : hy + Ny, :hx].set(t3(lo_x))
-        e = e.at[hz : hz + Nz, hy : hy + Ny, hx + Nx :].set(t3(hi_x))
-        e = e.at[hz : hz + Nz, :hy, :].set(t3(lo_y))
-        e = e.at[hz : hz + Nz, hy + Ny :, :].set(t3(hi_y))
-        if hz:
-            lo_z, hi_z = ghost_blocks(e[hz : hz + Nz], hz, 0, zlo, zhi)
-            e = e.at[:hz].set(lo_z)
-            e = e.at[hz + Nz :].set(hi_z)
-        return e
-    at = jnp.transpose(a, (2, 1, 0))
-    if getattr(grid, "north_fold", False):
-        from gb25_tpu.grids.tripolar import fold_ghosts_north
-
-        Nx, Ny, Nz = a.shape
-        e = jnp.pad(at, ((hz, hz), (hy, hy), (hx, hx)))
-        north = fold_ghosts_north(a, hy, kind, grid.pole_index)  # (Nx, hy, Nz)
-        e = e.at[hz : hz + Nz, hy + Ny :, hx : hx + Nx].set(
-            jnp.transpose(north, (2, 1, 0))
-        )
-        lo, _ = ghost_blocks(a, hy, 1, FIELD_BCS[kind][1][0], "zerograd")
-        e = e.at[hz : hz + Nz, :hy, hx : hx + Nx].set(jnp.transpose(lo, (2, 1, 0)))
-        # x periodic wrap after the fold (corner halos), whole pencils
-        e = e.at[:, :, :hx].set(e[:, :, Nx : hx + Nx])
-        e = e.at[:, :, hx + Nx :].set(e[:, :, hx : 2 * hx])
-        if hz:
-            zlo_b, zhi_b = ghost_blocks(e[hz : hz + Nz], hz, 0, zlo, zhi)
-            e = e.at[:hz].set(zlo_b)
-            e = e.at[hz + Nz :].set(zhi_b)
-        return e
-    return _extend_3d_fast(at, (hz, hy, hx), (zlo, zhi), (ylo, yhi), (xlo, xhi))
-
-
 def extend2(grid, a, kind: str, comm=None, h: int = 1):
     """Extend a 2-D field with an arbitrary (small) halo width ``h`` — used by
     the barotropic substep loop, which only needs width-1 halos per substep."""

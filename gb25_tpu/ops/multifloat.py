@@ -3,18 +3,19 @@
 Reference capability: GB-25 maps ``--limbs/--target-float-type`` to
 ``Reactant.MultiFloatOptions`` so tendency compute can run at an emulated
 precision different from the storage precision
-(/root/reference/src/arg_parsing.jl:99-107).  The TPU analog here is a
+(/root/reference/src/arg_parsing.jl:99-107).  The analog here is a
 two-limb ("double-double" style) value type carried through the *same*
 tendency physics (``tendency_math`` et al.) via operator overloading:
 
 - ``f32x2``  — true double-single arithmetic (error-free transforms: Knuth
-  two-sum, Dekker split two-prod).  TPUs have no f64 ALUs; this emulates
-  ~2^-48 relative precision from f32 hardware ops — the interesting
+  two-sum, Dekker split two-prod).  Float64 runs at a fraction of the
+  float32 rate on most accelerators; this emulates ~2^-48 relative
+  precision from f32 hardware ops — the interesting
   direction for an ocean model whose reference runs Float64 on CPU/GPU.
 - ``bf16x2`` — paired-bf16 storage limbs; each operation promotes the pair
   to f32 (exact: the limbs are non-overlapping, <= 17 mantissa bits total),
   computes in f32, and re-splits on store, giving ~2^-16 relative precision.
-  On TPU this is a storage/parity format (same bytes as f32); it exists to
+  This is a storage/parity format (same bytes as f32); it exists to
   mirror the reference's limbs=2 low-precision experiments.
 
 The limb arrays form a JAX pytree, so ``TwoFloat`` values flow through

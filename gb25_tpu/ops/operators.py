@@ -3,7 +3,7 @@
 These implement the discrete operators the reference gets from Oceananigans:
 horizontal divergence, vertical vorticity, continuity (diagnostic w),
 hydrostatic pressure integral, kinetic energy — all as shape-preserving
-element-wise/shift arithmetic suitable for XLA fusion on the TPU VPU.
+element-wise/shift arithmetic that XLA fuses.
 
 All inputs/outputs are halo-extended arrays; each operator consumes one cell
 of halo validity per difference/interpolation.
@@ -14,7 +14,6 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from gb25_tpu.ops.multifloat import (
-    is_twofloat,
     mf_concatenate,
     mf_cumsum,
     mf_sum,
@@ -32,10 +31,8 @@ def horizontal_divergence(grid, u, v):
     v-points is ``dxf``.
 
     Metric divisions are written as reciprocal multiplies throughout the
-    tendency cone: XLA constant-folds ``1/metric`` for the array path
-    (metrics are trace-time constants), and inside the Pallas kernel a
-    (1, by, bx) reciprocal replaces a (W, by, bx) broadcasted division on
-    the TPU's low-throughput EUP.
+    tendency cone: the reciprocal of a metric is a thin (1, Ny, 1) or 2-D
+    array, so the full-field work is a multiply, not a divide.
     """
     return (dx_c(u * grid.dyc) + dy_c(v * grid.dxf)) * (1.0 / grid.azc)
 
@@ -68,10 +65,9 @@ def kinetic_energy(u, v, scheme: str = "hollingsworth"):
     2nd-order on smooth fields, and restores the ∇K/vorticity-flux
     compatibility).  The reference stack cures the same instability
     inside Oceananigans' WENOVectorInvariant by self-upwinding the KE
-    gradient (Silvestri et al. 2024); the Hollingsworth correction is the
-    TPU-friendlier equivalent — a pure VPU stencil, no extra WENO
-    reconstructions — adopted as the production default for the same
-    robustness reason (~0.1% of step cost).
+    gradient (Silvestri et al. 2024); the Hollingsworth correction is a
+    cheaper equivalent — a pure stencil, no extra WENO reconstructions —
+    adopted as the production default for the same robustness reason.
 
     Honesty note (round 4): a fast 1/4-degree blow-up initially blamed on
     Hollingsworth turned out to be the vertical-advection CFL of the
@@ -90,13 +86,8 @@ def kinetic_energy(u, v, scheme: str = "hollingsworth"):
     return (2.0 * third) * Ks + third * Kb
 
 
-def _zcumsum(grid, a):
-    """Inclusive cumulative sum along z; inside Pallas kernels (no cumsum
-    lowering) this becomes a triangular-matrix MXU contraction."""
-    if getattr(grid, "in_kernel", False) and not is_twofloat(a):
-        from gb25_tpu.ops.pallas_tendency import kernel_cumsum
-
-        return kernel_cumsum(a, inclusive=True)
+def _zcumsum(a):
+    """Inclusive cumulative sum along z."""
     return mf_cumsum(a, axis=2)
 
 
@@ -112,7 +103,7 @@ def diagnose_w(grid, u, v):
     div = horizontal_divergence(grid, u, v)  # extended; z-ghosts garbage
     div_int = div[:, :, hz : hz + Nz] * grid.dz_c[:, :, hz : hz + Nz]
     # w at bottom face of interior cell k: -(sum of div*dz below k)
-    wcum = _zcumsum(grid, div_int)
+    wcum = _zcumsum(div_int)
     w_int = mf_concatenate([mf_zeros_like(wcum[:, :, :1]), -wcum[:, :, :-1]], axis=2)
     w_top = -wcum[:, :, -1:]  # w at the surface face (= d(eta)/dt forcing)
     # re-extend in z: zeros below bottom; surface value then zero-gradient above
@@ -136,7 +127,7 @@ def hydrostatic_pressure(grid, b):
     bdz = b[:, :, hz : hz + Nz] * grid.dz_c[:, :, hz : hz + Nz]
     # negated reversed cumulative sum excluding own layer + half own layer
     total = mf_sum(bdz, axis=2, keepdims=True)
-    csum = _zcumsum(grid, bdz)
+    csum = _zcumsum(bdz)
     p_int = csum - total - 0.5 * bdz
     below = [p_int[:, :, :1]] * hz
     above = [p_int[:, :, -1:]] * hz

@@ -17,33 +17,11 @@ Index convention (matches gb25_tpu.grids):
 
 from __future__ import annotations
 
-import contextlib
-
 import jax.numpy as jnp
 
 from gb25_tpu.ops.multifloat import mf_roll
 
-_AXIS = {"x": 0, "y": 1, "z": 2}
-
-
-@contextlib.contextmanager
-def axis_order(x: int, y: int, z: int):
-    """Temporarily remap the named axes to different array dimensions.
-
-    The TPU z-slab Pallas kernel (ops/pallas_zslab.py) operates on transposed
-    (z, y, x) windows so the large x extent rides the 128-lane dimension and
-    z-stencils become leading-dim shifts; entering ``axis_order(z=0, y=1,
-    x=2)`` lets the *same* physics code (weno, operators, tendency math) run
-    on that layout unchanged. Tracing is single-threaded per call, so a
-    module-global swap with try/finally is safe.
-    """
-    global _AXIS
-    old = _AXIS
-    _AXIS = {"x": x, "y": y, "z": z}
-    try:
-        yield
-    finally:
-        _AXIS = old
+_AXIS = {"x": 0, "y": 1, "z": 2}  # named axis -> array dimension
 
 
 def sm(a, axis, n=1):

@@ -3,10 +3,11 @@
 Reference capability: ``VerticalScalarDiffusivity(VerticallyImplicitTimeDiscretization())``
 and the implicit halves of CATKE/k-epsilon closures
 (/root/reference/src/baroclinic_instability_model.jl:29-31). The reference
-solves batched tridiagonal systems per column on GPU; here the Thomas
-algorithm runs as a ``lax.scan`` over the (small) z extent with whole (x, y)
-slabs per level — each scan step is one fused VPU element-wise op over the
-horizontal tile, which is the natural TPU mapping.
+solves batched tridiagonal systems per column on GPU. Here the plain
+reference is the Thomas algorithm as a ``lax.scan`` over the (small) z extent
+with whole (x, y) slabs per level; on a CUDA device the same recurrence runs
+as one Pallas-Triton kernel over blocks of columns (ops/thomas_triton.py).
+``implicit_vertical_diffusion`` chooses between them by platform alone.
 """
 
 from __future__ import annotations
@@ -62,22 +63,33 @@ def implicit_vertical_diffusion(field, kappa_face, dt, dz_c, dz_f, damping=None)
     implicit linearized decay lam = C_D sqrt(e)/ell is the standard cure and
     what the reference's closures do).
 
-    field:      (Nx, Ny, Nz) interior array
+    field:      (Nx, Ny, Nz) interior array, or a tuple of such arrays that
+                share ``kappa_face``/``damping`` (a tuple is returned)
     kappa_face: diffusivity at z-faces, broadcastable to (Nx, Ny, Nz);
                 entry k is the *bottom* face of cell k; the flux through the
                 bottom of cell 0 and the (virtual) top face are zero.
-    dz_c:       (..., Nz) cell thicknesses (interior)
-    dz_f:       (..., Nz) center-to-center spacings at bottom faces (interior)
+    dz_c:       (1, 1, Nz) cell thicknesses (interior)
+    dz_f:       (1, 1, Nz) center-to-center spacings at bottom faces (interior)
 
-    On TPU with full-shape kappa (the CATKE/k-eps climate path) the solve
-    runs as one Pallas pass (ops/pallas_tridiag.py) instead of the
-    scan-over-z below — same recurrence, ~8x faster at 768x384x64.
+    The solver is chosen when the program is lowered, by the platform it is
+    lowered for: the Triton kernel on CUDA, the scan everywhere else.
     """
-    from gb25_tpu.ops.pallas_tridiag import pallas_implicit_diffusion, tridiag_supported
+    from gb25_tpu.ops.thomas_triton import thomas_solve
 
-    if tridiag_supported(field, kappa_face, dz_c, dz_f, damping):
-        return pallas_implicit_diffusion(field, kappa_face, dt, dz_c, dz_f,
-                                         damping=damping)
+    single = not isinstance(field, (tuple, list))
+    fields = (field,) if single else tuple(field)
+    out = jax.lax.platform_dependent(
+        cuda=lambda: thomas_solve(fields, kappa_face, dt, dz_c, dz_f, damping),
+        default=lambda: tuple(
+            scan_vertical_diffusion(f, kappa_face, dt, dz_c, dz_f, damping)
+            for f in fields),
+    )
+    return out[0] if single else tuple(out)
+
+
+def scan_vertical_diffusion(field, kappa_face, dt, dz_c, dz_f, damping=None):
+    """The plain reference: ``implicit_vertical_diffusion`` for one field as
+    a ``lax.scan`` Thomas solve."""
     Nz = field.shape[-1]
     kap = jnp.broadcast_to(kappa_face, field.shape)
     dzc = jnp.broadcast_to(dz_c, field.shape)

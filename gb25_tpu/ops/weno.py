@@ -27,8 +27,7 @@ from gb25_tpu.ops.stencils import sm, sp
 
 
 def _positive(vel):
-    """Upwind sign test; bf16 comparisons are unsupported on the TPU VPU
-    (Mosaic: "Target does not support this comparison"), so compare at f32."""
+    """Upwind sign test, compared at f32 for bf16 velocities."""
     if getattr(vel, "dtype", None) == jnp.bfloat16:
         vel = vel.astype(jnp.float32)
     return vel > 0.0
@@ -45,9 +44,7 @@ def _weno5_from_shifts(m2, m1, s0, p1, p2, eps):
     The nonlinear weights are evaluated division-free up to a single final
     divide: with t_i = (b_i + eps)^2, the weighted sum
     (sum g_i q_i / t_i) / (sum g_i / t_i) is multiplied through by
-    t0 t1 t2, leaving one division instead of four.  Divisions run on the
-    TPU's low-throughput EUP; this form is measurably faster in the fused
-    Pallas kernel.  Range safety in f32: t_i >= eps^2 = 1e-12, so the
+    t0 t1 t2, leaving one division instead of four.  Range safety in f32: t_i >= eps^2 = 1e-12, so the
     pairwise products (>= 1e-24) and the denominator (>= g_i eps^4 ~ 1e-25)
     stay far above the f32 flush-to-zero threshold (~1e-38).  Upper bound:
     t_i ~ (sample jump)^4, so the pairwise products grow like jump^8 and
@@ -59,12 +56,11 @@ def _weno5_from_shifts(m2, m1, s0, p1, p2, eps):
     candidate polynomials and smoothness indicators are rebuilt from the
     four first differences d1..d4 of the samples — e.g.
     q0 = s0 + (5 d2 - 2 d1)/6 and beta0 = C13 (d2-d1)^2 + 1/4 (X0+2 d2)^2 —
-    saving ~14 VPU flops per reconstruction point with no extra shifts or
+    saving ~14 flops per reconstruction point with no extra shifts or
     selects (a precomputed-shared-field variant was measured SLOWER: the
     shifted reads cost more than the arithmetic they saved).  Values agree
-    with the textbook form to reassociation roundoff, not bitwise; the
-    array and kernel paths share this code so they stay consistent."""
-    sixth = 1.0 / 6.0  # multiply, not divide: EUP has no fast f32 divide
+    with the textbook form to reassociation roundoff, not bitwise."""
+    sixth = 1.0 / 6.0  # multiply, not divide
     if not _use_factored():
         q0 = (2.0 * m2 - 7.0 * m1 + 11.0 * s0) * sixth
         q1 = (-m1 + 5.0 * s0 + 2.0 * p1) * sixth
@@ -134,12 +130,7 @@ def weno5_upwind(a, vel, axis: str, align: str = "face", eps: float = 1e-6):
     reconstruction, so the five stencil *samples* are selected by the wind
     direction first and ONE reconstruction runs — bitwise identical to
     reconstructing both sides and selecting, at ~55 instead of ~110 flops
-    per face.  This nearly halves the WENO cost of the fused TPU kernel.
-    (A shared-smoothness variant precomputing three per-cell beta fields
-    and wind-selecting their shifts was measured SLOWER on v5e — serial
-    flagship 37.2 -> 40.2 ms/step — because the six extra shifted reads
-    cost more than the ~20 saved flops; see _weno5_from_shifts for the
-    factored per-point algebra that did stick.)
+    per face.
     """
     lo = 1 if align == "face" else 0
 

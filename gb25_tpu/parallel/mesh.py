@@ -4,8 +4,8 @@ Reference: ``factors(N)`` (/root/reference/src/sharding_utils.jl:39-62)
 chooses a 2-D process grid (Dx, Dy) with Dx ~ 2 Dy (the benchmark domain is
 384x192, aspect 2:1), with square special cases (4 -> (2,2), 16 -> (4,4),
 512 -> (32,32), 16384 -> (128,128)). Here the same policy feeds
-``jax.make_mesh`` over ("x", "y") — on TPU the mesh maps onto the ICI torus
-so the halo collective-permutes ride neighbor links.
+``jax.sharding.Mesh`` over ("x", "y"); the halo collective-permutes run
+between mesh neighbours.
 """
 
 from __future__ import annotations
@@ -28,149 +28,35 @@ _SPECIAL = {
 }
 
 
-def factors(N: int, global_nx: int | None = None, n_slices: int = 1) -> tuple[int, int]:
-    """(Rx, Ry) process grid: prefers Rx = 2 Ry, falls back to the divisor
-    pair closest to that aspect ratio.
-
-    ``global_nx``: when the global x extent is known, decompositions whose
-    local tile keeps the z-slab kernel (local Nx a multiple of 128 — the
-    Mosaic lane constraint, ops/pallas_zslab.py) are preferred over purely
-    aspect-ratio-optimal ones: losing the kernel costs ~4x step time
-    (VERDICT r2 weak #6), far more than a skewed aspect ratio costs in halo
-    bytes.  Among kernel-keeping pairs the usual 2:1 aspect policy applies.
-
-    ``n_slices``: on a multi-slice deployment (several ICI tori joined by
-    DCN), only shapes with Ry % n_slices == 0 admit the hybrid mesh whose
-    DCN traffic is one seam row-pair per slice pair (``hybrid_shape``); any
-    other shape scatters DCN hops through the torus.  Slice admissibility
-    outranks kernel alignment: a mis-sliced mesh pays DCN latency on *every*
-    halo exchange, while a misaligned tile only loses the kernel speedup.
-    Preference order: slice-ok+aligned > slice-ok > aligned > aspect-only.
-    """
-    kernel_ok = (
-        lambda rx: global_nx is not None
-        and global_nx % rx == 0
-        and (global_nx // rx) % 128 == 0
-    )
-    slice_ok = lambda ry: ry % n_slices == 0
+def factors(N: int) -> tuple[int, int]:
+    """(Rx, Ry) process grid: the special cases above, else the divisor pair
+    closest to Rx = 2 Ry."""
     if N in _SPECIAL:
-        rx, ry = _SPECIAL[N]
-        if (global_nx is None or kernel_ok(rx)) and slice_ok(ry):
-            return rx, ry
-    # tiers: (slice-ok, kernel-aligned) > slice-ok > aligned > any
-    tiers = [None, None, None, None]
+        return _SPECIAL[N]
+    best = None
     for ry in range(1, N + 1):
         if N % ry:
             continue
         rx = N // ry
         score = abs(np.log2(rx / ry) - 1.0)  # target rx/ry = 2
-        for t, ok in enumerate((
-            slice_ok(ry) and kernel_ok(rx),
-            slice_ok(ry),
-            kernel_ok(rx),
-            True,
-        )):
-            if ok and (tiers[t] is None or score < tiers[t][0]):
-                tiers[t] = (score, (rx, ry))
-    if global_nx is None:  # no alignment data: only slice tiers apply
-        tiers[0] = tiers[2] = None
-    for t in tiers:
-        if t is not None:
-            return t[1]
-    return (N, 1)  # unreachable: tier 3 always fills
-
-
-def kernel_alignment_warning(grid_nx: int, rx: int) -> str | None:
-    """Message when the decomposition silently loses the z-slab kernel.
-
-    Sharded tiles cannot wrap-pad to the 128-lane quantum (x halos belong
-    to neighbors), so a local Nx % 128 != 0 falls back to the ~4x-slower
-    array path (ops/pallas_zslab.py support gate).  Returns None when the
-    tiling keeps the kernel."""
-    if grid_nx % rx:
-        return (
-            f"global Nx={grid_nx} not divisible by Rx={rx}: invalid decomposition"
-        )
-    nxl = grid_nx // rx
-    if nxl % 128:
-        return (
-            f"local tile Nx={nxl} (global {grid_nx} / Rx={rx}) is not a "
-            "multiple of 128: sharded tiles cannot wrap-pad, so the z-slab "
-            "Pallas kernel is ineligible and the step falls back to the "
-            "~4x-slower array path. Choose Rx with (Nx/Rx) % 128 == 0 "
-            "(e.g. via factors(N, global_nx=Nx))."
-        )
-    return None
-
-
-def hybrid_shape(n_devices: int, n_slices: int, shape=None):
-    """((rx, ry), (ici_x, ici_y), (dcn_x, dcn_y)) for a multi-slice mesh.
-
-    The DCN boundary cuts the *y* axis (outer/slow axis): each slice holds a
-    full-width band of rows, so only the one seam row-pair per neighboring
-    slice pair communicates over DCN; all other halo traffic stays on ICI.
-    Requires ry % n_slices == 0.
-    """
-    rx, ry = shape or factors(n_devices)
-    if rx * ry != n_devices:
-        raise ValueError(f"mesh shape {(rx, ry)} != device count {n_devices}")
-    if ry % n_slices:
-        raise ValueError(
-            f"y extent {ry} of the process grid must divide across "
-            f"{n_slices} slices (one row band per slice)"
-        )
-    return (rx, ry), (rx, ry // n_slices), (1, n_slices)
+        if best is None or score < best[0]:
+            best = (score, (rx, ry))
+    return best[1]
 
 
 def make_mesh(n_devices: int | None = None, devices=None, shape=None) -> jax.sharding.Mesh:
-    """2-D ("x", "y") device mesh over the first ``n_devices`` devices.
-
-    Multi-slice TPU deployments (devices spanning several ICI tori joined
-    by DCN) get a hybrid mesh: the x axis and the within-slice part of y
-    stay on ICI, and the y axis crosses slices in contiguous bands so only
-    the band-seam halo exchanges ride DCN (reference analog: the multi-node
-    Slingshot layer the NCCL configs drive, sharding_utils.jl:74-79).
-    """
+    """2-D ("x", "y") device mesh: the first ``n_devices`` devices in
+    ``jax.devices()`` order reshaped to ``shape`` (default ``factors``).
+    Every GPU of a host reaches every other at the same NVLink rate, so the
+    mesh follows the algorithm alone."""
     if devices is None:
         devices = jax.devices()
     if n_devices is None:
         n_devices = len(devices)
-    devices = devices[:n_devices]
-    slice_ids = sorted({getattr(d, "slice_index", 0) for d in devices})
-    rx, ry = shape or factors(n_devices, n_slices=len(slice_ids))
+    if n_devices > len(devices):
+        raise ValueError(f"{n_devices} devices requested, {len(devices)} present")
+    rx, ry = shape or factors(n_devices)
     if rx * ry != n_devices:
         raise ValueError(f"mesh shape {(rx, ry)} != device count {n_devices}")
-
-    if len(slice_ids) > 1:
-        if ry % len(slice_ids):
-            import warnings
-
-            warnings.warn(
-                f"mesh shape {(rx, ry)} cannot band {len(slice_ids)} slices "
-                "(Ry % n_slices != 0): falling back to a flat device order, "
-                "which scatters DCN hops through the halo pattern. Pick a "
-                "shape via factors(N, n_slices=...) instead.",
-                stacklevel=2,
-            )
-            dev_array = np.asarray(devices).reshape(rx, ry)
-            return jax.sharding.Mesh(dev_array, ("x", "y"))
-        else:
-            from jax.experimental import mesh_utils
-
-            (rx, ry), ici, dcn = hybrid_shape(n_devices, len(slice_ids), (rx, ry))
-            dev_array = mesh_utils.create_hybrid_device_mesh(
-                ici, dcn, devices, allow_split_physical_axes=True
-            )
-            return jax.sharding.Mesh(dev_array, ("x", "y"))
-
-    # single slice: topology-aware layout so logically adjacent (x, y) mesh
-    # neighbors sit on physically adjacent ICI links (on a v4/v5p 3-D torus
-    # a naive jax.devices() reshape makes every halo ppermute multi-hop);
-    # mesh_utils reduces to a plain reshape on hosts without a torus
-    try:
-        from jax.experimental import mesh_utils
-
-        dev_array = mesh_utils.create_device_mesh((rx, ry), devices=devices)
-    except Exception:  # unusual device sets (e.g. hand-built fakes)
-        dev_array = np.asarray(devices).reshape(rx, ry)
+    dev_array = np.asarray(devices[:n_devices]).reshape(rx, ry)
     return jax.sharding.Mesh(dev_array, ("x", "y"))

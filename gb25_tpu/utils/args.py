@@ -31,8 +31,7 @@ def float_type(name: str):
 
     Requesting f64 also flips ``jax_enable_x64`` — without it JAX silently
     downcasts every array to f32, which in round 1 masqueraded as
-    "fusion-order differences" and forced loosened correctness tolerances
-    (VERDICT r1 item 10)."""
+    "fusion-order differences" and forced loosened correctness tolerances."""
     if name == "f64":
         import jax
 
@@ -61,8 +60,7 @@ def benchmark_parser(description="gb25_tpu simulation") -> argparse.ArgumentPars
                    help="degrees; Nx=384/res, Ny=192/res (reference policy)")
     p.add_argument("--float-type", default="f32", choices=list(_FLOAT_TYPES))
     p.add_argument("--target-float-type", default=None,
-                   help="optional lowered compute dtype (bf16/f8 experiments; "
-                        "'bf16s' = bf16-storage/f32-compute kernel mode)")
+                   help="optional lowered compute dtype (bf16/f8 experiments)")
     p.add_argument("--limbs", type=int, default=1, choices=[1, 2],
                    help="multi-limb emulated compute precision (reference "
                         "MultiFloatOptions, arg_parsing.jl:99-107): limbs=2 "
@@ -76,10 +74,6 @@ def benchmark_parser(description="gb25_tpu simulation") -> argparse.ArgumentPars
     p.add_argument("--substeps", type=int, default=30)
     p.add_argument("--closure", default="none",
                    choices=["none", "vertical_scalar", "catke"])
-    p.add_argument("--kernels", default="auto",
-                   choices=["auto", "zslab", "pallas", "jnp"],
-                   help="tendency backend ablation (auto = Pallas kernels "
-                        "on TPU, XLA array ops elsewhere)")
     p.add_argument("--profile-dir", default=None,
                    help="write an XSpace profiler trace to this directory")
     p.add_argument("--output-dir", default=None)
@@ -124,10 +118,6 @@ def build_config(args):
         if base not in ("f32", "bf16"):
             raise SystemExit("--limbs 2 supports --target-float-type f32/bf16")
         compute_dtype = {"f32": "f32x2", "bf16": "bf16x2"}[base]
-    elif target == "bf16s":
-        # bf16-storage / f32-compute z-slab kernel mode (halved kernel input
-        # HBM traffic; arithmetic stays f32) — see models/hydrostatic.py
-        compute_dtype = "bf16s"
     elif target is not None:
         compute_dtype = str(jnp.dtype(target_float_type(target)))
     import dataclasses
@@ -135,6 +125,4 @@ def build_config(args):
     cfg = baroclinic_instability_config(free_surface=fs, closure=closure)
     if compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
-    if getattr(args, "kernels", "auto") != "auto":
-        cfg = dataclasses.replace(cfg, kernels=args.kernels)
     return cfg

@@ -1,4 +1,4 @@
-"""Compile-time management (the reference's ext/ precompile layer, TPU-way).
+"""Compile-time management (the reference's ext/ precompile layer).
 
 Reference behavior: GB-25 ships 11 PrecompileTools packages that each
 @compile one stage of the time step on a tiny model to warm Julia's cache in
@@ -15,13 +15,24 @@ import os
 import jax
 
 
-def enable_persistent_cache(directory: str | None = None,
-                            min_compile_time_secs: float = 1.0):
-    """Turn on the on-disk XLA compilation cache (reference analog:
-    the whole ext/Precompile* layer + Reactant's serialized executables)."""
-    directory = directory or os.environ.get(
-        "GB25_COMPILE_CACHE", os.path.expanduser("~/.cache/gb25_tpu_xla")
-    )
+# The cache key includes the directory, so the default is one fixed path
+# inside the checkout (listed in .gitignore), never under $HOME.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
+
+
+def cache_dir() -> str:
+    """``JAX_COMPILATION_CACHE_DIR`` when set, else ``DEFAULT_CACHE_DIR``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
+def enable_persistent_cache(min_compile_time_secs: float = 1.0):
+    """Turn on the on-disk XLA compilation cache at ``cache_dir()``
+    (reference analog: the whole ext/Precompile* layer + Reactant's
+    serialized executables). Returns the directory."""
+    directory = cache_dir()
     os.makedirs(directory, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", directory)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", min_compile_time_secs)

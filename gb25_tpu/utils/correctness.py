@@ -2,7 +2,7 @@
 
 Reference behavior reimplemented: ``src/correctness.jl`` — field-by-field
 comparison of two model states (there: Reactant vs vanilla CPU; here: e.g.
-sharded vs single-device, f32 vs f64 oracle, TPU vs CPU) with per-field
+sharded vs single-device, f32 vs f64 oracle, GPU vs CPU) with per-field
 max|psi|, max|delta| and argmax reporting, ``rtol=sqrt(eps(FT))``, ``atol=0``
 defaults, and ``sync_states!`` to copy one state onto another's devices.
 """

@@ -34,7 +34,7 @@ def main():
     Nx, Ny, Nz = resolve_grid_size(args)
     # rtol = sqrt(eps(FT)), the reference's own bar (correctness.jl:14-17).
     # Measured per-field shard-vs-serial errors at f64 (48x24x10, 8 virtual
-    # devices, dt=1e-9, 111 steps — VERDICT r1 item 10):
+    # devices, dt=1e-9, 111 steps):
     #   u, v, eta, T, S, time, iteration : 0.0 (bitwise identical)
     #   Gu, Gv, G_S                      : <= 5e-16 relative
     #   G_T                              : <= 8e-14 relative

@@ -105,23 +105,20 @@ def main():
     # the (possibly pre-regridded, ocean-sized) records into the IR as
     # constants — hundreds of MB at the flagship grid
     def climate_loop(ccfg_, grid_, atmos_, restoring_, s, dt, n):
-        from gb25_tpu.models.hydrostatic import _g_t3_ok, g_t3_loop, premask_state
+        from gb25_tpu.models.hydrostatic import premask_state
 
-        g_t3 = _g_t3_ok(ccfg_.ocean, grid_, s, None)
         s = premask_state(grid_, s)
 
         def step1(ss):
             fluxes, _diag = compute_interface_fluxes(ccfg_, grid_, atmos_, ss)
             ss = time_step(ccfg_.ocean, grid_, ss, dt, surface_fluxes=fluxes,
-                           restoring=restoring_, g_t3=g_t3, premasked=True)
+                           restoring=restoring_, premasked=True)
             # freezing limiter on the PROGNOSTIC temperature, exactly as
             # coupled_time_step does (ClimaOcean:
             # above_freezing_ocean_temperature!) — restoring/cooling must
             # not leave polar water supercooled
             return limit_ocean_temperature(ccfg_.sea_ice, ss)
 
-        if g_t3:  # transposed-G carry (see models.hydrostatic.loop)
-            return g_t3_loop(step1, s, n)
         return jax.lax.fori_loop(0, n, lambda _, ss: step1(ss), s)
 
     if ice_holder is not None:

@@ -1,4 +1,4 @@
-"""Cold vs warm-cache compile-time table (VERDICT r4 item 7).
+"""Cold vs warm-cache compile-time table.
 
 The reference ships an entire ext/ layer of 11 PrecompileTools packages
 because trace+compile dominates its startup (/root/reference/ext/, SURVEY
@@ -6,12 +6,12 @@ section 7 hard part (e)); our equivalent is the persistent XLA compilation
 cache + AOT warmer (utils/cache.py).  This probe MEASURES that equivalence:
 for each benchmark program it times lower+compile twice against the same
 cache directory — the first pass (cold: fresh directory) pays trace + XLA +
-Mosaic kernel compiles; the second (warm) should hit the on-disk cache.
+Triton kernel compiles; the second (warm) should hit the on-disk cache.
 
 Each timing runs in a SUBPROCESS so no in-process jit/executable cache can
-leak between passes.  Emits docs/COMPILE.md with the table.
+leak between passes.  Writes the table to --out.
 
-Usage:  python scripts/probes/compile_time.py [--out docs/COMPILE.md]
+Usage:  python scripts/probes/compile_time.py [--out compile_time.md]
         python scripts/probes/compile_time.py --one flagship --cache DIR
 """
 
@@ -44,7 +44,8 @@ def measure_one(name, cache_dir):
     from gb25_tpu.utils.env import preamble
 
     preamble()
-    enable_persistent_cache(cache_dir)
+    os.environ["JAX_COMPILATION_CACHE_DIR"] = cache_dir
+    enable_persistent_cache()
     spec = PROGRAMS[name]
     t0 = time.perf_counter()
     if spec["config"] == "climate":
@@ -96,7 +97,7 @@ def main():
     p.add_argument("--one", default=None, help="(internal) measure one program")
     p.add_argument("--cache", default=None)
     p.add_argument("--programs", default="flagship,climate_quarter,flagship_sharded")
-    p.add_argument("--out", default="docs/COMPILE.md")
+    p.add_argument("--out", default="compile_time.md")
     args = p.parse_args()
 
     if args.one:
@@ -136,11 +137,11 @@ def main():
         "",
         f"Measured on `{backend}` via `scripts/probes/compile_time.py` — each",
         "cell is wall seconds of `lower(...).compile()` in a fresh process",
-        "(trace included in build_s; cold = empty `GB25_COMPILE_CACHE` dir,",
+        "(trace included in build_s; cold = empty `JAX_COMPILATION_CACHE_DIR`,",
         "warm = second process against the same dir).  This is the",
-        "reference's ext/ precompile-layer concern, measured for the TPU",
+        "reference's ext/ precompile-layer concern, measured for this",
         "translation (utils/cache.py): the persistent XLA cache is the",
-        "startup-cost answer (VERDICT r4 item 7).",
+        "startup-cost answer.",
         "",
         "| program | cold compile s | warm compile s | speedup | model build s |",
         "|---|---|---|---|---|",

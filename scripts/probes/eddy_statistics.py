@@ -19,8 +19,8 @@ sigma_fit lands below sigma_Eady; the probe reports the ratio and the test
 (tests/test_eddy_statistics.py) asserts a generous physical band rather than
 equality.
 
-Usage (the validated configuration; result in docs/EDDY_VALIDATION.json —
-1 degree, 20 days: EKE x6.5, sigma_fit/sigma_Eady = 0.38, fit r2 = 0.99):
+Usage (the validated configuration, 1 degree, 20 days; its earlier result
+and the rerun queued for the GPU are in ROADMAP.md):
     python scripts/probes/eddy_statistics.py --nx 360 --ny 160 --nz 8 \
         --dt 900 --steps 1920 --chunk 96
 Prints one JSON line with the series, the fit, and the Eady estimate.
@@ -126,7 +126,7 @@ def run(nx, ny, nz, dt, steps, chunk, dtype="float32", seed=42,
     if init == "balanced":
         # thermal-wind-balanced jet: no geostrophic-adjustment transient,
         # so the fit window starts clean and dt is not clamped by the
-        # transient's w-CFL (VERDICT r4 item 5).  Small seed noise buys
+        # transient's w-CFL.  Small seed noise buys
         # more e-foldings of clean linear growth before saturation.
         state = balanced_jet_state(grid, cfg, seed=seed, tracers=cfg.tracers,
                                    noise_velocity=noise)
@@ -155,7 +155,7 @@ def run(nx, ny, nz, dt, steps, chunk, dtype="float32", seed=42,
     while ekes and not np.isfinite(ekes[-1]):
         times.pop(), ekes.pop(), mkes.pop()
     sigma_fit, r2, window = fit_growth(times, ekes)
-    try:  # HBM footprint evidence (VERDICT r4 item 5: OOM-note correction)
+    try:  # HBM footprint evidence
         from gb25_tpu.utils.profiling import allocator_stats
 
         alloc = {k: (v if not isinstance(v, dict) else

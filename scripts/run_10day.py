@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Production-run protocol at 1/4 degree (VERDICT r4 item 2).
+"""Production-run protocol at 1/4 degree.
 
 Executes the reference's run protocol end-to-end on the coupled data-free
 climate model (tripolar + gaussian islands + CATKE + coupled fluxes —
@@ -20,7 +20,7 @@ Phases (each its own process; ``--phase all`` orchestrates):
     full      -> <out>/full_final/      (uninterrupted 10-day state)
     interrupt -> <out>/ckpt/ckpt_iter*  (day-5 checkpoint, then exit)
     resume    -> <out>/resume_final/    (restored, day 5 -> 10)
-    compare   -> docs/RUN_10DAY.json    (bitwise verdict + stats)
+    compare   -> <out>/run_10day.json   (bitwise verdict + stats)
 """
 
 import argparse
@@ -148,10 +148,11 @@ def main():
     p.add_argument("--dt", type=float, default=60.0,
                    help="60 s clears the unbalanced-init adjustment "
                         "transient's w-CFL at 1/4 degree "
-                        "(docs/EDDY_VALIDATION.json round-4 finding)")
+                        "(ROADMAP.md, eddy-saturation validation)")
     p.add_argument("--days", type=float, default=10.0)
-    p.add_argument("--out", default="/tmp/run10day")
-    p.add_argument("--json-out", default="docs/RUN_10DAY.json")
+    p.add_argument("--out", default="run10day_output")
+    p.add_argument("--json-out", default=None,
+                   help="default: <out>/run_10day.json")
     args = p.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -198,8 +199,9 @@ def main():
             results[phase] = json.loads(lines[-1][len("PHASE_RESULT "):])
             print(f"phase {phase}: {results[phase]}", flush=True)
         results["comparison"] = compare(args)
-        os.makedirs(os.path.dirname(args.json_out) or ".", exist_ok=True)
-        with open(args.json_out, "w") as f:
+        json_out = args.json_out or os.path.join(args.out, "run_10day.json")
+        os.makedirs(os.path.dirname(json_out) or ".", exist_ok=True)
+        with open(json_out, "w") as f:
             json.dump(results, f, indent=1)
         print(json.dumps(results["comparison"]))
 

@@ -3,8 +3,10 @@
 analysis/weak-scaling/*.jl — fixed per-device tile, growing device count,
 'grid points per second per device' normalized efficiency plot/table).
 
-On a real pod this runs once per slice size (via the pod launcher); on a dev
-box it sweeps virtual CPU device counts to validate the scaling path."""
+On a multi-GPU host this runs over the host's cards; on a dev box it sweeps
+virtual CPU device counts to validate the scaling path. The projection to
+larger device counts needs the halo link's measured rate and latency
+(--link-bytes-per-sec, --link-latency-s, --link-uncertainty)."""
 
 import sys, os, time, json, argparse
 
@@ -33,7 +35,7 @@ def run_once(n, tile, Nz, steps, dtype_name, overlap=True):
     fn = sharded_step_fn(cfg, grid, mesh, n_inner=steps)
     dt = jnp.asarray(1.0, dtype)
 
-    # static comm accounting from the compiled program (VERDICT r1 item 8):
+    # static comm accounting from the compiled program:
     # per-step collective-permute count + bytes per device; reuse this ONE
     # compiled executable for the run too (calling the jitted fn would
     # compile the identical program a second time — the AOT path does not
@@ -90,7 +92,7 @@ def climate_comm_stats(nx, nz):
     coupled climate program: lower + compile (CPU backend, no execution) the
     full decomposed program on a 2x2 mesh and read the steady-state while
     body's permutes (analysis/comm.py).  The tile this yields (nx/2 x nx/4)
-    is the fixed per-device tile of the pod-scale projection."""
+    is the fixed per-device tile of the projection."""
     import dataclasses
 
     import jax
@@ -136,20 +138,27 @@ def main():
                    help="also run with overlap_split=False (reference analog: "
                         "the optimize_communications ablation, sharded_..._run.jl:109-112)")
     p.add_argument("--project-chips", default="8,16,32,64,128,256",
-                   help="chip counts for the ICI weak-scaling projection")
+                   help="device counts for the weak-scaling projection")
+    p.add_argument("--link-bytes-per-sec", type=float, required=True,
+                   help="measured per-device halo-exchange link rate")
+    p.add_argument("--link-latency-s", type=float, required=True,
+                   help="measured latency of one collective-permute round")
+    p.add_argument("--link-uncertainty", type=float, default=1.0,
+                   help="factor applied to the whole comm term for the "
+                        "pessimistic end of each range")
     p.add_argument("--compute-ms", type=float, default=None,
-                   help="measured single-chip kernel-path ms/step for the "
-                        "projection's compute term (from bench.py on real "
-                        "TPU hardware).  Without it the projection falls "
-                        "back to this sweep's own ms/step — meaningless on "
-                        "virtual CPU devices.")
+                   help="measured single-device ms/step for the "
+                        "projection's compute term (from bench.py on the "
+                        "GPU).  Without it the projection falls back to "
+                        "this sweep's own ms/step — meaningless on virtual "
+                        "CPU devices.")
     p.add_argument("--climate-compute-ms", type=float, default=None,
                    help="measured decomposed-path ms/step of the 1/4-degree "
                         "coupled climate configuration (bench.py "
                         "climate_quarter_sharded1x1 row); adds a climate "
                         "projection whose comm term is the EXACT compiled "
                         "byte count of the sharded coupled program at "
-                        "1536x768 on a 2x2 mesh (VERDICT r4 item 1)")
+                        "1536x768 on a 2x2 mesh")
     p.add_argument("--climate-nx", type=int, default=1536)
     p.add_argument("--climate-nz", type=int, default=64)
     p.add_argument("--stats-tile", default=None,
@@ -188,7 +197,8 @@ def main():
               f"{str(r['overlap_split'])[0]:>4} {r['permutes_per_step']:>8} "
               f"{r['comm_bytes_per_step_per_device'] / 1e3:>10.1f}")
 
-    # ICI projection at pod scale (fixed tile => constant bytes/step/device).
+    # projection to larger device counts (fixed tile => constant
+    # bytes/step/device).
     # The projection's comm stats come from a COMPILE-ONLY build at the
     # production per-device tile (--stats-tile) on a 2x2 mesh — the timed
     # sweep can then use small tiles (big tiles trip the virtual-CPU
@@ -213,14 +223,17 @@ def main():
     compute_ms = args.compute_ms if args.compute_ms else last["ms_per_step"]
     compute_src = ("measured kernel-path (--compute-ms)" if args.compute_ms
                    else "this sweep (virtual-CPU noise; pass --compute-ms)")
-    print(f"\nICI weak-scaling projection (per-device tile fixed; "
+    link = dict(link_bytes_per_sec=args.link_bytes_per_sec,
+                latency_per_round=args.link_latency_s,
+                bw_uncertainty=args.link_uncertainty)
+    print(f"\nweak-scaling projection (per-device tile fixed; "
           f"compute term {compute_ms:.2f} ms from {compute_src}; "
-          f"eff ranges span the ~2x ICI-bandwidth uncertainty):")
+          f"eff ranges span the x{args.link_uncertainty} link uncertainty):")
     print(f"{'chips':>6} {'overlap eff':>12} {'ablated eff':>12} "
-          f"{'ablated eff range':>20} {'comm ms [nom..2x]':>20}")
+          f"{'ablated eff range':>20} {'comm ms range':>20}")
     for ovl in (True, False):
         projection["overlap" if ovl else "ablated"] = project_weak_scaling(
-            compute_ms, stats, chip_counts=chips, overlap=ovl)
+            compute_ms, stats, chip_counts=chips, overlap=ovl, **link)
     for n in chips:
         po = projection["overlap"][n]
         pa = projection["ablated"][n]
@@ -239,7 +252,7 @@ def main():
         for ovl in (True, False):
             climate_projection["overlap" if ovl else "ablated"] = \
                 project_weak_scaling(args.climate_compute_ms, climate_stats,
-                                     chip_counts=chips, overlap=ovl)
+                                     chip_counts=chips, overlap=ovl, **link)
         pa = climate_projection["ablated"][chips[0]]
         print(f"\nclimate 1/4-deg projection: compute "
               f"{args.climate_compute_ms:.2f} ms (measured decomposed path), "
@@ -260,22 +273,13 @@ def main():
                                      "bytes_per_step_per_device": stats.bytes_per_step},
            "climate_projection": climate_projection,
            "climate_projection_compute_ms": args.climate_compute_ms,
-           "ici_constants": "analysis/comm.py defaults (uncalibrated: this "
-                            "env has one real chip; see "
-                            "scripts/probes/measure_ici.py for the "
-                            "calibration recipe + documented error bar)",
-           "ici_error_bar": "bytes term from the v5e datasheet (4 links x "
-                            "45 GB/s one-way), within ~2x under contention; "
-                            "latency term only matters below ~64 KB/exchange "
-                            "vs ~1.5 MB/step/device at the flagship tile, so "
-                            "the projection is bandwidth-model-driven where "
-                            "it matters (measure_ici.py docstring)",
+           "link": link,
            "virtual_cpu_timing_is_nonsignal": args.virtual_cpu,
            "note": ("virtual-CPU sweep rows validate the comm pattern "
                     "(permutes/bytes per step) only: all N virtual devices "
                     "share one host's cores, so per-device throughput "
                     "inherently divides by N — use the projection table, "
-                    "whose compute term is the real-chip measurement"
+                    "whose compute term is the GPU measurement"
                     if args.virtual_cpu else "real-device sweep")}
     with open("weak_scaling_results.json", "w") as f:
         json.dump(out, f, indent=1)

@@ -1,5 +1,5 @@
 """XSpace trace decoding test: emit a real jax.profiler trace (the CPU
-backend writes the same .xplane.pb format as TPU) and mine it with our
+backend writes the same .xplane.pb format as the GPU) and mine it with our
 dependency-free decoder (reference analog: analysis/xspace + notebooks)."""
 
 import jax

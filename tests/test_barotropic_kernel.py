@@ -1,250 +1,12 @@
-"""VMEM-resident barotropic-loop kernel vs the blocked array path.
+"""The blocked split-explicit barotropic solve: the exchange width is exact
+and blocking agrees with an exchange every substep."""
 
-The kernel replays the identical forward-backward substep arithmetic in
-flux-weighted form; agreement is to f32 reassociation noise.
-"""
-
-import dataclasses
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from gb25_tpu.grids import simple_latitude_longitude_grid
 from gb25_tpu.models import baroclinic_instability_config, baroclinic_instability_state
 from gb25_tpu.models.free_surface import barotropic_substep
-
-
-def _run(cfg, grid, state, monkeypatch, mode):
-    if mode == "kernel":
-        monkeypatch.setenv("GB25_ZSLAB_INTERPRET", "1")
-        monkeypatch.delenv("GB25_DISABLE_PALLAS", raising=False)
-    else:
-        monkeypatch.setenv("GB25_DISABLE_PALLAS", "1")
-        monkeypatch.delenv("GB25_ZSLAB_INTERPRET", raising=False)
-    rng = np.random.default_rng(7)
-    Gu = jnp.asarray(rng.standard_normal(state.u.shape) * 1e-6, state.u.dtype)
-    Gv = jnp.asarray(rng.standard_normal(state.v.shape) * 1e-6, state.v.dtype)
-    return barotropic_substep(cfg, grid, state, state.u, state.v, Gu, Gv, 60.0)
-
-
-def test_barotropic_kernel_matches_array_path(monkeypatch):
-    grid = simple_latitude_longitude_grid(128, 32, 8, dtype=jnp.float32)
-    cfg = baroclinic_instability_config()
-    state = baroclinic_instability_state(grid, noise_velocity=1e-3)
-    # give eta structure so the pressure gradient actually acts
-    rng = np.random.default_rng(5)
-    state = state.replace(
-        eta=jnp.asarray(rng.standard_normal((128, 32)) * 1e-3, jnp.float32)
-    )
-
-    eta_a, u_a, v_a = _run(cfg, grid, state, monkeypatch, "array")
-    eta_k, u_k, v_k = _run(cfg, grid, state, monkeypatch, "kernel")
-
-    np.testing.assert_allclose(np.asarray(eta_k), np.asarray(eta_a),
-                               rtol=1e-5, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_a),
-                               rtol=1e-5, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_a),
-                               rtol=1e-5, atol=1e-8)
-
-
-def test_barotropic_kernel_gates():
-    from gb25_tpu.ops.pallas_barotropic import barotropic_kernel_supported
-
-    cfg = baroclinic_instability_config()
-    g32 = simple_latitude_longitude_grid(128, 32, 8, dtype=jnp.float32)
-    g64 = simple_latitude_longitude_grid(128, 32, 8, dtype=jnp.float64)
-    # f64 and odd widths stay on the array path
-    assert not barotropic_kernel_supported(cfg, g64, jnp.float64)
-    g_odd = simple_latitude_longitude_grid(96, 32, 8, dtype=jnp.float32)
-    assert not barotropic_kernel_supported(cfg, g_odd, jnp.float32)
-    # explicit free surface has no substeps
-    from gb25_tpu.models.config import ExplicitFreeSurface
-
-    cfg_exp = dataclasses.replace(cfg, free_surface=ExplicitFreeSurface())
-    assert not barotropic_kernel_supported(cfg_exp, g32, jnp.float32)
-
-
-def _blocked_vs_array(grid, monkeypatch, state=None):
-    """Run barotropic_substep twice: blocked VMEM kernel vs array loop.
-    The full-loop serial kernel is disabled so the blocked branch runs."""
-    from gb25_tpu import ops
-
-    cfg = baroclinic_instability_config()
-    if state is None:
-        state = baroclinic_instability_state(grid, noise_velocity=1e-3)
-        rng = np.random.default_rng(5)
-        state = state.replace(
-            eta=jnp.asarray(rng.standard_normal((grid.Nx, grid.Ny)) * 1e-3,
-                            jnp.float32)
-        )
-    rng = np.random.default_rng(7)
-    Gu = jnp.asarray(rng.standard_normal(state.u.shape) * 1e-6, state.u.dtype)
-    Gv = jnp.asarray(rng.standard_normal(state.v.shape) * 1e-6, state.v.dtype)
-
-    monkeypatch.setenv("GB25_DISABLE_PALLAS", "1")
-    monkeypatch.delenv("GB25_ZSLAB_INTERPRET", raising=False)
-    ref = barotropic_substep(cfg, grid, state, state.u, state.v, Gu, Gv, 60.0)
-
-    monkeypatch.setenv("GB25_ZSLAB_INTERPRET", "1")
-    monkeypatch.delenv("GB25_DISABLE_PALLAS", raising=False)
-    monkeypatch.setattr(
-        ops.pallas_barotropic, "barotropic_kernel_supported",
-        lambda *a, **k: False,
-    )
-    ker = barotropic_substep(cfg, grid, state, state.u, state.v, Gu, Gv, 60.0)
-    return ref, ker
-
-
-def _assert_triple_close(ker, ref):
-    for k, r in zip(ker, ref):
-        np.testing.assert_allclose(np.asarray(k), np.asarray(r),
-                                   rtol=1e-5, atol=1e-8)
-
-
-def test_blocked_kernel_matches_array_latlon(monkeypatch):
-    """Shard-capable blocked kernel == blocked array path (the block/exchange
-    structure is identical; only the substep arithmetic moves into VMEM)."""
-    grid = simple_latitude_longitude_grid(128, 32, 8, dtype=jnp.float32)
-    ref, ker = _blocked_vs_array(grid, monkeypatch)
-    _assert_triple_close(ker, ref)
-
-
-def test_blocked_kernel_matches_array_immersed(monkeypatch):
-    """Immersed grids carry solid-face masks into the kernel."""
-    from gb25_tpu.grids.immersed import with_bathymetry
-
-    base = simple_latitude_longitude_grid(128, 32, 8, dtype=jnp.float32)
-    import numpy as _np
-
-    bh = _np.full((128, 32), -4000.0)
-    bh[40:60, 10:20] = 100.0  # island above sea level
-    grid = with_bathymetry(base, jnp.asarray(bh, jnp.float32))
-    ref, ker = _blocked_vs_array(grid, monkeypatch)
-    _assert_triple_close(ker, ref)
-
-
-def test_blocked_kernel_matches_array_tripolar(monkeypatch):
-    """Tripolar grids (2-D metric planes + north-fold exchange) run the
-    blocked kernel too — the fold enters through the exchanged halos."""
-    from gb25_tpu.grids import tripolar_grid
-
-    grid = tripolar_grid(64, 32, 8, dtype=jnp.float32)
-    ref, ker = _blocked_vs_array(grid, monkeypatch)
-    _assert_triple_close(ker, ref)
-
-
-def _fold_consistent(grid, state, Gu, Gv):
-    """Make test data satisfy the physical T-pivot invariant (seam row
-    self-symmetric) that time_step maintains via north_fold_projection —
-    the whole-loop kernel's fresh-fold-per-substep BC and the array path's
-    evolved halos agree exactly on (and only on) such data."""
-    from gb25_tpu.grids.tripolar import _fold_x, north_fold_projection
-
-    u, v, eta, _ = north_fold_projection(grid, state.u, state.v, state.eta, {})
-    state = state.replace(u=u, v=v, eta=eta)
-    p, P = grid.pole_index, grid.Ny - 1
-    row = Gu[:, P]
-    Gu = Gu.at[:, P].set(0.5 * (row - _fold_x(row, p, face=True)))
-    return state, Gu, Gv
-
-
-def _run_fold(cfg, grid, state, monkeypatch, mode):
-    rng = np.random.default_rng(7)
-    Gu = jnp.asarray(rng.standard_normal(state.u.shape) * 1e-6, state.u.dtype)
-    Gv = jnp.asarray(rng.standard_normal(state.v.shape) * 1e-6, state.v.dtype)
-    state, Gu, Gv = _fold_consistent(grid, state, Gu, Gv)
-    if mode == "kernel":
-        monkeypatch.setenv("GB25_ZSLAB_INTERPRET", "1")
-        monkeypatch.delenv("GB25_DISABLE_PALLAS", raising=False)
-    else:
-        monkeypatch.setenv("GB25_DISABLE_PALLAS", "1")
-        monkeypatch.delenv("GB25_ZSLAB_INTERPRET", raising=False)
-    # dt=10: the metric-floored pole columns (land in any real run) are
-    # gravity-wave unstable at larger dtau; both paths blow up identically
-    # but f32 divergence amplifies past tolerance
-    return barotropic_substep(cfg, grid, state, state.u, state.v, Gu, Gv, 10.0)
-
-
-def test_barotropic_loop_kernel_matches_array_tripolar(monkeypatch):
-    """The whole-loop kernel applies the T-pivot fold in-kernel (one
-    permutation-matmul V-flux ghost row per substep); it must match the
-    blocked array path, whose fold enters through the exchanged halos."""
-    from gb25_tpu.grids import tripolar_grid
-
-    grid = tripolar_grid(128, 32, 8, dtype=jnp.float32)
-    cfg = baroclinic_instability_config()
-    state = baroclinic_instability_state(grid, noise_velocity=1e-3)
-    rng = np.random.default_rng(5)
-    state = state.replace(
-        eta=jnp.asarray(rng.standard_normal((128, 32)) * 1e-3, jnp.float32)
-    )
-    eta_a, u_a, v_a = _run_fold(cfg, grid, state, monkeypatch, "array")
-    eta_k, u_k, v_k = _run_fold(cfg, grid, state, monkeypatch, "kernel")
-    np.testing.assert_allclose(np.asarray(eta_k), np.asarray(eta_a),
-                               rtol=1e-5, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_a),
-                               rtol=1e-5, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_a),
-                               rtol=1e-5, atol=1e-8)
-
-
-def test_barotropic_loop_kernel_matches_array_immersed_tripolar(monkeypatch):
-    """Climate configuration shape: tripolar + immersed bathymetry runs the
-    whole-loop kernel with solid-face masks AND the in-kernel fold."""
-    from gb25_tpu.grids import tripolar_grid
-    from gb25_tpu.grids.immersed import with_bathymetry
-
-    base = tripolar_grid(128, 32, 8, dtype=jnp.float32)
-    bh = np.full((128, 32), -4000.0)
-    bh[40:60, 10:20] = 100.0  # island above sea level
-    # shallow shelf away from the seam rows: physical tripolar bathymetry
-    # must be fold-symmetric ON the seam row (the same cells appear twice),
-    # so test land keeps clear of rows >= Ny-2
-    bh[90:100, 20:26] = -50.0
-    grid = with_bathymetry(base, jnp.asarray(bh, jnp.float32))
-    cfg = baroclinic_instability_config()
-    state = baroclinic_instability_state(grid, noise_velocity=1e-3)
-    rng = np.random.default_rng(5)
-    state = state.replace(
-        eta=jnp.asarray(rng.standard_normal((128, 32)) * 1e-3, jnp.float32)
-    )
-    eta_a, u_a, v_a = _run_fold(cfg, grid, state, monkeypatch, "array")
-    eta_k, u_k, v_k = _run_fold(cfg, grid, state, monkeypatch, "kernel")
-    np.testing.assert_allclose(np.asarray(eta_k), np.asarray(eta_a),
-                               rtol=1e-5, atol=1e-9)
-    # u/v atol: the barotropic correction divides the filtered transport by
-    # the 50 m shelf face depths, amplifying f32 reassociation noise ~80x
-    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_a),
-                               rtol=1e-5, atol=5e-7)
-    np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_a),
-                               rtol=1e-5, atol=5e-7)
-
-
-def test_barotropic_loop_kernel_matches_array_immersed_latlon(monkeypatch):
-    """Immersed lat-lon grids take the whole-loop kernel with masks."""
-    from gb25_tpu.grids.immersed import with_bathymetry
-
-    base = simple_latitude_longitude_grid(128, 32, 8, dtype=jnp.float32)
-    bh = np.full((128, 32), -4000.0)
-    bh[40:60, 10:20] = 100.0
-    grid = with_bathymetry(base, jnp.asarray(bh, jnp.float32))
-    cfg = baroclinic_instability_config()
-    state = baroclinic_instability_state(grid, noise_velocity=1e-3)
-    rng = np.random.default_rng(5)
-    state = state.replace(
-        eta=jnp.asarray(rng.standard_normal((128, 32)) * 1e-3, jnp.float32)
-    )
-    eta_a, u_a, v_a = _run(cfg, grid, state, monkeypatch, "array")
-    eta_k, u_k, v_k = _run(cfg, grid, state, monkeypatch, "kernel")
-    np.testing.assert_allclose(np.asarray(eta_k), np.asarray(eta_a),
-                               rtol=1e-5, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_a),
-                               rtol=1e-5, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_a),
-                               rtol=1e-5, atol=1e-8)
 
 
 def _per_block_setup():
@@ -263,7 +25,6 @@ def _per_block_setup():
 
 
 def _run_per_block(cfg, grid, state, Gu, Gv, blk, monkeypatch):
-    monkeypatch.setenv("GB25_DISABLE_PALLAS", "1")
     monkeypatch.setenv("GB25_BAROTROPIC_BLOCK", str(blk))
     r = barotropic_substep(cfg, grid, state, state.u, state.v, Gu, Gv, 60.0)
     return [np.asarray(a) for a in r]

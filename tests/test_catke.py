@@ -82,8 +82,8 @@ def test_stable_column_stays_quiet():
 
 
 class TestMixedLayerScaling:
-    """Validate the CATKE calibration against the physics it targets
-    (VERDICT r1 item 5): wind-driven deepening follows the Price /
+    """Validate the CATKE calibration against the physics it targets:
+    wind-driven deepening follows the Price /
     Pollard-Rhines-Thompson family h = Ri_c^(1/4) u* sqrt(t/N), convective
     deepening follows the encroachment+entrainment law
     h = sqrt(2(1+2*beta) B0 t)/N. These are scheme-independent ocean
@@ -206,7 +206,7 @@ def test_from_oceananigans_name_mapping():
 
 
 def test_column_profile_regression():
-    """Golden-profile guard on the CATKE constants (VERDICT r2 item 10):
+    """Golden-profile guard on the CATKE constants:
     combined wind (tau=1e-4 m^2/s^2) + cooling (B0=1e-7 m^2/s^3) column,
     12 h at dt=600 on the N^2=1e-5 stratification. Any change to the
     closure constants or formulation shifts these digits at ~1e-2; the

@@ -76,8 +76,8 @@ import pytest
 
 @pytest.mark.skipif(
     not int(os.environ.get("GB25_EDDY_TEST", "0")),
-    reason="~8 min CPU integration; validated result in docs/EDDY_VALIDATION"
-           ".json — set GB25_EDDY_TEST=1 to re-run",
+    reason="~8 min CPU integration; the 1/4-degree eddy run is queued in "
+           "ROADMAP.md (Reach 8) — set GB25_EDDY_TEST=1 to re-run",
 )
 def test_eke_growth_vs_eady_band():
     """20-day 1-degree integration: EKE must grow by well over noise level

@@ -89,7 +89,7 @@ def test_split_explicit_does_not_flux_through_coastlines():
         tracers=("T", "S"), momentum_advection="vector_invariant",
         tracer_advection="centered2", eos=LinearEquationOfState(),
         free_surface=SplitExplicitFreeSurface(substeps=10),
-        closure=None, kernels="jnp",
+        closure=None,
     )
     rng = np.random.default_rng(3)
     u0 = rng.standard_normal((NX, NY, NZ)) * 1e-2

@@ -258,7 +258,7 @@ def test_compensated_clock_does_not_absorb_increments():
 
 
 def test_balanced_jet_reduces_adjustment_transient():
-    """Round 5 (VERDICT r4 item 5): the thermal-wind-balanced jet
+    """The thermal-wind-balanced jet
     initializer must start far closer to geostrophic balance than the
     reference's unbalanced T/S front — the 12-step drift of u and eta
     (the geostrophic-adjustment signature whose w-CFL clamped the

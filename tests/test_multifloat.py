@@ -3,7 +3,7 @@
 Reference capability: /root/reference/src/arg_parsing.jl:99-107 maps
 --limbs/--target-float-type to Reactant.MultiFloatOptions.  Here:
 ``compute_dtype="f32x2"`` runs the tendency physics in double-single
-arithmetic (emulated ~f64 on TPU hardware that has no f64 ALUs) and
+arithmetic (emulated ~f64 from f32 limbs) and
 ``"bf16x2"`` in paired-bf16 limbs.  The tests pin the accuracy ordering
 bf16 << bf16x2 < f32 << f32x2 against an f64 run of the same physics.
 """

@@ -1,4 +1,4 @@
-"""NetCDF ingestion tests (VERDICT r1 missing #2): classic NetCDF3 via
+"""NetCDF ingestion tests: classic NetCDF3 via
 scipy, NetCDF4/HDF5 via h5py, converter script, and the direct-``.nc`` path
 through the climate pipeline."""
 

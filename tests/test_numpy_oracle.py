@@ -286,7 +286,7 @@ def test_full_step_matches_numpy_oracle():
         eos=eos,
         free_surface=ExplicitFreeSurface(),
         closure=None,
-        kernels="jnp",
+       
         # the oracle's K() hardcodes the plain C-grid form; the production
         # default is the Hollingsworth-corrected KE (ops/operators.py)
         ke_scheme="standard",

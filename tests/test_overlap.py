@@ -132,42 +132,25 @@ class _StubComm:
         return a
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_zslab_kernel_core_independent_of_exchange(monkeypatch, fused):
-    """VERDICT r2 item 2 'done' gate: with kernels="zslab" under a comm, the
-    big kernel consumes only the LOCAL extension — NaN-poisoning every
-    exchanged halo cell leaves the kernel-computed core untouched (bitwise),
-    while the array-path boundary strips (the only consumers of exchanged
-    data) do see the poison.  Covers both the plain and the AB2-fused
-    ("updated") kernel outputs."""
+def test_compute_tendencies_core_independent_of_exchange():
+    """With overlap_split under a comm, compute_tendencies builds the core
+    from the LOCAL extension: NaN-poisoning every exchanged halo cell leaves
+    the core of every tendency untouched (bitwise), while the boundary
+    strips (the only consumers of exchanged data) do see the poison."""
     from gb25_tpu.models.hydrostatic import compute_tendencies
 
-    monkeypatch.setenv("GB25_ZSLAB_INTERPRET", "1")
-    grid = simple_latitude_longitude_grid(128, 32, 8, dtype=jnp.float32)
-    cfg = dataclasses.replace(baroclinic_instability_config(), kernels="zslab",
-                              overlap_split=True)
+    grid = simple_latitude_longitude_grid(64, 32, 8, dtype=jnp.float32)
+    cfg = dataclasses.replace(baroclinic_instability_config(), overlap_split=True)
     state = baroclinic_instability_state(grid, noise_velocity=1e-3)
     hx, hy = grid.hx, grid.hy
 
-    ab2 = None
-    if fused:
-        dt = jnp.float32(60.0)
-        ab = jnp.stack([dt * 1.6, dt * (-0.6)]).reshape(1, 2)
-        ab2 = (ab, state.Gu, state.Gv, state.Gtracers)
-
     outs = {}
     for tag, poison in [("clean", False), ("poisoned", True)]:
-        Gu, Gv, _, Gtr, _, upd, _ = compute_tendencies(
-            cfg, grid, state, comm=_StubComm(poison=poison), ab2=ab2
-        )
-        fields = [Gu, Gv] + [Gtr[k] for k in sorted(Gtr)]
-        if fused:
-            assert upd is not None
-            u_u, v_u, tr_u = upd
-            fields += [u_u, v_u] + [tr_u[k] for k in sorted(tr_u)]
-        outs[tag] = [np.asarray(f) for f in fields]
+        Gu, Gv, _, Gtr, _ = compute_tendencies(
+            cfg, grid, state, comm=_StubComm(poison=poison))
+        outs[tag] = [np.asarray(f) for f in [Gu, Gv] + [Gtr[k] for k in sorted(Gtr)]]
 
-    core = (slice(hx, 128 - hx), slice(hy, 32 - hy))
+    core = (slice(hx, 64 - hx), slice(hy, 32 - hy))
     for a, b in zip(outs["clean"], outs["poisoned"]):
         assert np.isnan(b[0]).any() and np.isnan(b[-1]).any(), \
             "poison never reached the boundary strips"

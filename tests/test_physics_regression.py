@@ -50,7 +50,7 @@ def test_deep_flow_converges_toward_buoyant_column():
     cfg = HydrostaticConfig(
         tracers=("b",), momentum_advection="vector_invariant",
         tracer_advection="centered2", free_surface=ExplicitFreeSurface(),
-        closure=None, kernels="jnp", coriolis=0.0,
+        closure=None, coriolis=0.0,
     )
     lon = _lon_centers(grid)
     b_col = 1e-4 * np.exp(-((lon - 180.0) ** 2) / (2 * 30.0**2))  # (Nx,)
@@ -77,7 +77,7 @@ def test_warm_column_deep_convergence_linear_eos():
     cfg = HydrostaticConfig(
         tracers=("T", "S"), momentum_advection="vector_invariant",
         tracer_advection="centered2", eos=eos,
-        free_surface=ExplicitFreeSurface(), closure=None, kernels="jnp",
+        free_surface=ExplicitFreeSurface(), closure=None,
         coriolis=0.0,
     )
     lon = _lon_centers(grid)
